@@ -1,0 +1,235 @@
+"""HTTP API server (the port of the generation routes of
+cremage_tpu/app/server.py), a stdlib ThreadingHTTPServer over the
+EngineWorker with the same JSON contract:
+
+  POST /v1/generate   job dict (reference mp protocol), returns job id
+  GET  /v1/status     drain pending status/result messages
+  GET  /v1/health     liveness + devices + kernel launch counts
+
+Run `python -m cremage_tpu_torch.app.server --port N` to serve an SD1.5
+bundle on the GPU. The port has no checkpoint loader yet, so the bundle's
+weights are random, made from --seed.
+"""
+from __future__ import annotations
+
+import base64
+import json
+import logging
+import queue
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional
+
+from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
+from cremage_tpu_torch.core.config import (
+    GENERATOR_MODEL_TYPES, GMT_SD_1_5, GenerationOptions,
+)
+
+logger = logging.getLogger(__name__)
+
+
+class BadRequest(ValueError):
+    """Maps to HTTP 400 (vs 500 for internal failures)."""
+
+
+# request validation bounds (a headless API enforces them server-side)
+MAX_EDGE = 4096
+MAX_STEPS = 1000
+MAX_BATCH = 64
+
+# job-dict envelope keys (reference mp protocol); everything else is a
+# generation parameter and belongs under job["parameters"]
+_JOB_ENVELOPE_KEYS = ("type", "generator_model_type", "mode", "parameters")
+
+
+def _normalize_generate(body: dict) -> dict:
+    """Accept both the reference job shape and a flat dict with generation
+    fields at the top level (folded into "parameters"); mode and
+    generator_model_type are mirrored into the parameters, and JSON nulls
+    are dropped so they never override GenerationOptions defaults."""
+    job = {k: body[k] for k in _JOB_ENVELOPE_KEYS if k in body}
+    extra = {k: v for k, v in body.items() if k not in _JOB_ENVELOPE_KEYS}
+    params = dict(job.get("parameters") or {})
+    for k, v in extra.items():
+        params.setdefault(k, v)
+    for k in ("mode", "generator_model_type"):
+        if k in job:
+            params.setdefault(k, job[k])
+    job["parameters"] = {k: v for k, v in params.items() if v is not None}
+    return job
+
+
+def _validate_generate(job) -> Optional[str]:
+    """Validates the NORMALIZED job (what the worker will consume)."""
+    gmt = job.get("generator_model_type")
+    if gmt is not None and gmt not in GENERATOR_MODEL_TYPES:
+        return (f"unknown generator_model_type {gmt!r}; "
+                f"one of {GENERATOR_MODEL_TYPES}")
+    p = job["parameters"]
+    for dim in ("H", "W"):
+        v = p.get(dim)
+        if v is None:
+            continue
+        if not isinstance(v, int) or not (8 <= v <= MAX_EDGE) or v % 8:
+            return f"{dim} must be a multiple of 8 in [8, {MAX_EDGE}]"
+    steps = p.get("sampling_steps")
+    if steps is not None and (not isinstance(steps, int)
+                              or not 1 <= steps <= MAX_STEPS):
+        return f"sampling_steps must be an int in [1, {MAX_STEPS}]"
+    for k in ("n_samples", "n_iter"):
+        v = p.get(k)
+        if v is not None and (not isinstance(v, int)
+                              or not 1 <= v <= MAX_BATCH):
+            return f"{k} must be an int in [1, {MAX_BATCH}]"
+    return None
+
+
+class ApiServer:
+    def __init__(self, worker: Optional[EngineWorker] = None,
+                 host: str = "127.0.0.1", port: int = 8787):
+        self.worker = worker or EngineWorker()
+        self.host = host
+        self.port = port
+        self._httpd: Optional[ThreadingHTTPServer] = None
+        self._job_counter = 0
+        self._counter_lock = threading.Lock()
+
+    def handle(self, method: str, path: str, body: Dict[str, Any]):
+        if path == "/v1/health":
+            import torch
+
+            from cremage_tpu_torch.ops.flash_attention import flash_attention
+            from cremage_tpu_torch.ops.groupnorm import group_norm_silu
+
+            devices = [torch.cuda.get_device_name(i)
+                       for i in range(torch.cuda.device_count())] or ["cpu"]
+            return {
+                "ok": True,
+                "devices": devices,
+                "metrics": {
+                    "flash_attention_launches": flash_attention.launches,
+                    "group_norm_silu_launches": group_norm_silu.launches,
+                },
+            }
+        if path == "/v1/generate" and method == "POST":
+            if not isinstance(body, dict):
+                raise BadRequest("body must be a JSON object")
+            if "parameters" in body and not isinstance(
+                    body["parameters"], dict):
+                raise BadRequest("parameters must be a JSON object")
+            job = _normalize_generate(body)
+            err = _validate_generate(job)
+            if err:
+                raise BadRequest(err)
+            with self._counter_lock:
+                self._job_counter += 1
+                job_id = self._job_counter
+            job.setdefault("type", MP_MESSAGE_TYPE_INFERENCE)
+            self.worker.submit(job)
+            return {"job_id": job_id}
+        if path == "/v1/status":
+            msgs = []
+            while True:
+                try:
+                    m = self.worker.status_queue.get_nowait()
+                except queue.Empty:
+                    break
+                if isinstance(m, dict) and "image" in m:
+                    m = {
+                        "image_b64": base64.b64encode(m["image"]).decode(),
+                        "generation_parameters": m["generation_parameters"],
+                    }
+                msgs.append(m)
+            return {"messages": msgs}
+        return None
+
+    def _make_handler(server):
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):
+                logger.debug(fmt, *args)
+
+            def _reply(self, code, payload):
+                data = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def _dispatch(self, method):
+                length = int(self.headers.get("Content-Length") or 0)
+                body = {}
+                if length:
+                    try:
+                        body = json.loads(self.rfile.read(length))
+                    except json.JSONDecodeError:
+                        return self._reply(400, {"error": "bad json"})
+                try:
+                    out = server.handle(method, self.path, body)
+                except BadRequest as e:
+                    return self._reply(400, {"error": str(e)})
+                except Exception as e:  # structured errors
+                    logger.exception("request failed")
+                    return self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+                if out is None:
+                    return self._reply(404, {"error": "not found"})
+                return self._reply(200, out)
+
+            def do_GET(self):
+                self._dispatch("GET")
+
+            def do_POST(self):
+                self._dispatch("POST")
+
+        return Handler
+
+    def start(self, block: bool = False):
+        self.worker.start()
+        self._httpd = ThreadingHTTPServer((self.host, self.port),
+                                          self._make_handler())
+        self.port = self._httpd.server_address[1]
+        logger.info("api server on %s:%d", self.host, self.port)
+        if block:
+            self._httpd.serve_forever()
+        else:
+            threading.Thread(target=self._httpd.serve_forever,
+                             daemon=True).start()
+
+    def stop(self):
+        if self._httpd:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        self.worker.stop()
+
+
+def register_sd15(worker: EngineWorker, pipe) -> None:
+    """Serve `pipe` (an SD15Pipeline) as the "SD 1.5" backend."""
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+        return generate
+
+    worker.register_backend(GMT_SD_1_5, factory)
+
+
+def main():  # pragma: no cover
+    import argparse
+
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+
+    p = argparse.ArgumentParser("cremage-tpu-torch-server")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the bundle's random weights")
+    args = p.parse_args()
+    logging.basicConfig(level=logging.INFO)
+    worker = EngineWorker()
+    register_sd15(worker, SD15Pipeline(build_sd15_bundle(seed=args.seed)))
+    ApiServer(worker=worker, host=args.host, port=args.port).start(block=True)
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

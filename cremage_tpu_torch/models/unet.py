@@ -1,0 +1,253 @@
+"""Stable Diffusion UNet (SD1.5) in PyTorch, NCHW, bf16 compute / fp32
+norms — the port of cremage_tpu/models/unet.py, `mode="full"` only.
+
+Architecture contract follows the CompVis `UNetModel` (v1-inference.yaml).
+Module names follow the torch checkpoint keys under
+`model.diffusion_model.`, e.g. `input_blocks.1.0.in_layers.0.weight`; the
+Sequential slots that hold no parameters (SiLU, dropout) are Identity
+placeholders so the indices match. Attention goes through ops/attention.py
+(kernel K1 on CUDA), every GroupNorm through ops/groupnorm.py (kernel K2).
+IP-Adapter, ToMe, DeepCache and ControlNet are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from cremage_tpu_torch.models.layers import (
+    Conv2d, GroupNorm, LayerNorm, Linear, timestep_embedding,
+)
+from cremage_tpu_torch.ops.attention import attention
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    model_channels: int = 320
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (4, 2, 1)
+    channel_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_heads: int = 8                 # used when num_head_channels == -1
+    num_head_channels: int = -1
+    transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)  # per level
+    transformer_depth_middle: int = 1
+    context_dim: int = 768
+    dtype: torch.dtype = torch.bfloat16
+
+
+def sd15_unet_config(**kw) -> UNetConfig:
+    """v1-inference.yaml unet_config."""
+    return UNetConfig(**kw)
+
+
+def _heads_for(ch: int, cfg: UNetConfig) -> Tuple[int, int]:
+    if cfg.num_head_channels == -1:
+        return cfg.num_heads, ch // cfg.num_heads
+    return ch // cfg.num_head_channels, cfg.num_head_channels
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads, self.dim_head = heads, dim_head
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(context_dim, inner, bias=False)
+        self.to_v = Linear(context_dim, inner, bias=False)
+        self.to_out = nn.Sequential(Linear(inner, dim), nn.Identity())
+
+    def forward(self, x, context=None):
+        ctx = x if context is None else context
+        b, n, _ = x.shape
+        m = ctx.shape[1]
+        q = self.to_q(x).view(b, n, self.heads, self.dim_head)
+        k = self.to_k(ctx).view(b, m, self.heads, self.dim_head)
+        v = self.to_v(ctx).view(b, m, self.heads, self.dim_head)
+        out = attention(q, k, v).reshape(b, n, self.heads * self.dim_head)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim, inner * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # tanh-gelu under bf16 compute, exact erf-gelu otherwise, as the JAX
+        # UNet chooses
+        approx = "tanh" if x.dtype == torch.bfloat16 else "none"
+        return h * F.gelu(gate, approximate=approx)
+
+
+class FeedForward(nn.Module):
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Identity(),
+                                 Linear(dim * mult, dim))
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, context_dim: int, heads: int, dim_head: int):
+        super().__init__()
+        self.attn1 = CrossAttention(dim, dim, heads, dim_head)
+        self.ff = FeedForward(dim)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head)
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.norm3 = LayerNorm(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    """SD1.5 form: 1x1-conv proj_in/proj_out around the token blocks."""
+
+    def __init__(self, ch: int, context_dim: int, heads: int, dim_head: int,
+                 depth: int = 1):
+        super().__init__()
+        self.norm = GroupNorm(ch, 32, eps=1e-6)
+        self.proj_in = Conv2d(ch, ch, 1)
+        self.transformer_blocks = nn.ModuleList(
+            BasicTransformerBlock(ch, context_dim, heads, dim_head)
+            for _ in range(depth))
+        self.proj_out = Conv2d(ch, ch, 1)
+
+    def forward(self, x, context):
+        b, c, h, w = x.shape
+        t = self.proj_in(self.norm(x))
+        t = t.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
+        for blk in self.transformer_blocks:
+            t = blk(t, context)
+        t = t.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
+        return self.proj_out(t) + x
+
+
+class ResBlock(nn.Module):
+    def __init__(self, ch: int, emb_ch: int, out_ch: int):
+        super().__init__()
+        self.in_layers = nn.Sequential(GroupNorm(ch, 32, fuse_silu=True),
+                                       nn.Identity(), Conv2d(ch, out_ch, 3, padding=1))
+        self.emb_layers = nn.Sequential(nn.Identity(), Linear(emb_ch, out_ch))
+        self.out_layers = nn.Sequential(
+            GroupNorm(out_ch, 32, fuse_silu=True), nn.Identity(), nn.Identity(),
+            Conv2d(out_ch, out_ch, 3, padding=1))
+        self.skip_connection = (Conv2d(ch, out_ch, 1) if ch != out_ch
+                                else nn.Identity())
+
+    def forward(self, x, emb):
+        h = self.in_layers[2](self.in_layers[0](x))
+        h = h + self.emb_layers[1](F.silu(emb))[:, :, None, None]
+        h = self.out_layers[3](self.out_layers[0](h))
+        return self.skip_connection(x) + h
+
+
+class Downsample(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.op = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.op(x)
+
+
+class Upsample(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class UNetModel(nn.Module):
+    """The denoising UNet: forward(x NCHW, t (B,), context (B, L, D))."""
+
+    def __init__(self, cfg: UNetConfig):
+        super().__init__()
+        self.cfg = cfg
+        mc = cfg.model_channels
+        ted = mc * 4
+        depths = cfg.transformer_depth
+        self.time_embed = nn.Sequential(Linear(mc, ted), nn.Identity(),
+                                        Linear(ted, ted))
+        self.input_blocks = nn.ModuleList(
+            [nn.ModuleList([Conv2d(cfg.in_channels, mc, 3, padding=1)])])
+        chans = [mc]
+        ch, ds = mc, 1
+        n_levels = len(cfg.channel_mult)
+        for level, mult in enumerate(cfg.channel_mult):
+            for _ in range(cfg.num_res_blocks):
+                layers = [ResBlock(ch, ted, mc * mult)]
+                ch = mc * mult
+                if ds in cfg.attention_resolutions:
+                    heads, dh = _heads_for(ch, cfg)
+                    layers.append(SpatialTransformer(
+                        ch, cfg.context_dim, heads, dh, depths[level]))
+                self.input_blocks.append(nn.ModuleList(layers))
+                chans.append(ch)
+            if level != n_levels - 1:
+                self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
+                chans.append(ch)
+                ds *= 2
+        heads, dh = _heads_for(ch, cfg)
+        self.middle_block = nn.ModuleList([
+            ResBlock(ch, ted, ch),
+            SpatialTransformer(ch, cfg.context_dim, heads, dh,
+                               cfg.transformer_depth_middle),
+            ResBlock(ch, ted, ch)])
+        self.output_blocks = nn.ModuleList()
+        for level in reversed(range(n_levels)):
+            out_ch = mc * cfg.channel_mult[level]
+            for i in range(cfg.num_res_blocks + 1):
+                layers = [ResBlock(ch + chans.pop(), ted, out_ch)]
+                ch = out_ch
+                if ds in cfg.attention_resolutions:
+                    heads, dh = _heads_for(ch, cfg)
+                    layers.append(SpatialTransformer(
+                        ch, cfg.context_dim, heads, dh, depths[level]))
+                if level > 0 and i == cfg.num_res_blocks:
+                    layers.append(Upsample(ch))
+                    ds //= 2
+                self.output_blocks.append(nn.ModuleList(layers))
+        self.out = nn.Sequential(GroupNorm(ch, 32, fuse_silu=True),
+                                 nn.Identity(),
+                                 Conv2d(ch, cfg.out_channels, 3, padding=1))
+
+    @staticmethod
+    def _run(layers, h, emb, context):
+        for layer in layers:
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif isinstance(layer, SpatialTransformer):
+                h = layer(h, context)
+            else:
+                h = layer(h)
+        return h
+
+    def forward(self, x, timesteps, context):
+        dtype = self.cfg.dtype
+        t_emb = timestep_embedding(timesteps, self.cfg.model_channels).to(dtype)
+        emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        h = x.to(dtype)
+        context = context.to(dtype)
+        hs = []
+        for layers in self.input_blocks:
+            h = self._run(layers, h, emb, context)
+            hs.append(h)
+        h = self._run(self.middle_block, h, emb, context)
+        for layers in self.output_blocks:
+            h = torch.cat([h, hs.pop()], dim=1)
+            h = self._run(layers, h, emb, context)
+        return self.out[2](self.out[0](h))

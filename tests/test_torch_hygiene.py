@@ -1,0 +1,38 @@
+"""The port imports nothing of JAX or of the JAX package, and its entry
+points never fall back to the CPU silently."""
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import cremage_tpu_torch.pipelines.sd15
+        import cremage_tpu_torch.app.server
+        import cremage_tpu_torch as pkg
+        for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(info.name)
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "cremage_tpu")]
+        assert not bad, bad
+        assert any(m.startswith("cremage_tpu_torch.") for m in sys.modules)
+        print("clean")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_pipeline_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SD15Pipeline(bundle=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_sd15_bundle()

@@ -1,0 +1,118 @@
+"""A CPU round trip through the port's HTTP API: POST /v1/generate, drain
+/v1/status, decode the PNGs. The message keys must be the JAX worker's
+(cremage_tpu/app/worker.make_result_message)."""
+import base64
+import io
+import json
+import time
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from cremage_tpu.app.worker import make_result_message as j_result_message
+from cremage_tpu_torch.app.server import ApiServer, register_sd15
+from cremage_tpu_torch.app.worker import EngineWorker, make_result_message
+from cremage_tpu_torch.io.png import GENERATION_DATA_KEY, decode_png
+from cremage_tpu_torch.models.clip import CLIPTextConfig
+from cremage_tpu_torch.models.unet import UNetConfig
+from cremage_tpu_torch.models.vae import VAEConfig
+from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+
+torch.set_num_threads(2)
+
+F32 = torch.float32
+
+
+@pytest.fixture(scope="module")
+def server():
+    bundle = build_sd15_bundle(
+        "cpu", dtype=F32, seed=0,
+        unet_cfg=UNetConfig(model_channels=32, num_res_blocks=1,
+                            attention_resolutions=(1,), channel_mult=(1, 2),
+                            num_heads=4, transformer_depth=(1, 1),
+                            context_dim=32, dtype=F32),
+        vae_cfg=VAEConfig(ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1,
+                          dtype=F32),
+        clip_cfg=CLIPTextConfig(hidden_size=32, num_layers=2, num_heads=4,
+                                intermediate_size=64, dtype=F32))
+    worker = EngineWorker()
+    register_sd15(worker, SD15Pipeline(bundle, device="cpu"))
+    srv = ApiServer(worker=worker, port=0)
+    srv.start()
+    yield f"http://127.0.0.1:{srv.port}"
+    srv.stop()
+
+
+def _call(url, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if body is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    return json.loads(urllib.request.urlopen(req, timeout=30).read())
+
+
+def _drain(url, n_jobs, timeout=60.0):
+    msgs, done = [], 0
+    end = time.time() + timeout
+    while done < n_jobs and time.time() < end:
+        got = _call(url + "/v1/status")["messages"]
+        msgs += got
+        done += sum(1 for m in got if isinstance(m, dict) and "job_done" in m)
+        if not got:
+            time.sleep(0.05)
+    assert done == n_jobs, msgs
+    return msgs
+
+
+def test_generate_round_trip(server):
+    body = {"generator_model_type": "SD 1.5", "mode": "text_to_image",
+            "parameters": {"prompt": "a cat", "negative_prompt": "bad",
+                           "H": 64, "W": 64, "sampling_steps": 2,
+                           "sampler": "Euler A", "seed": 7, "n_samples": 2,
+                           "safety_check": False, "watermark": False}}
+    assert "job_id" in _call(server + "/v1/generate", body)
+    msgs = _drain(server, 1)
+    assert msgs[-1] == {"job_done": {"ok": True, "error": None}}
+    assert [m for m in msgs if isinstance(m, str)][:2] == [
+        "batch 1/1: encoding prompt", "1 / 2"]
+    images = [m for m in msgs if isinstance(m, dict) and "image_b64" in m]
+    assert len(images) == 2
+    for k, m in enumerate(images):
+        raw = base64.b64decode(m["image_b64"])
+        pil = Image.open(io.BytesIO(raw))
+        assert pil.size == (64, 64) and pil.mode == "RGB"
+        rgb, text = decode_png(raw)
+        np.testing.assert_array_equal(rgb, np.asarray(pil))
+        meta = json.loads(text[GENERATION_DATA_KEY])
+        assert meta == json.loads(m["generation_parameters"])
+        assert meta["seed"] == 7 + k and meta["prompt"] == "a cat"
+    health = _call(server + "/v1/health")
+    assert health["ok"] and "flash_attention_launches" in health["metrics"]
+
+
+def test_unsupported_job_reports_failure(server):
+    _call(server + "/v1/generate", {"generator_model_type": "SD 1.5",
+                                    "prompt": "x", "H": 64, "W": 64,
+                                    "sampler": "DDIM", "safety_check": False})
+    done = _drain(server, 1)[-1]["job_done"]
+    assert not done["ok"] and "NotImplementedError" in done["error"]
+
+
+def test_bad_request_is_400(server):
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _call(server + "/v1/generate", {"H": 65})
+    assert e.value.code == 400
+
+
+def test_result_message_keys_match_jax():
+    img = np.random.RandomState(0).rand(8, 8, 3).astype(np.float32)
+    meta = {"seed": 1, "prompt": "x"}
+    ours, ref = make_result_message(img, meta), j_result_message(img, meta)
+    assert set(ours) == set(ref)
+    assert ours["generation_parameters"] == ref["generation_parameters"]
+    np.testing.assert_array_equal(decode_png(ours["image"])[0],
+                                  np.asarray(Image.open(io.BytesIO(ref["image"]))))
