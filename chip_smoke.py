@@ -9,14 +9,17 @@ Phases, each printing one JSON line; any failure raises, so the exit code
 is nonzero and no final line is printed:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: both CUDA kernels compiled from csrc/ with nvcc for sm_90a;
+2. build: both CUDA kernels compiled from csrc/ with nvcc for sm_90a,
+   with each kernel's registers and spill bytes from `-Xptxas -v`;
 3. shapes: one full-width SD1.5 UNet eval (the CFG batch of 8 at 64x64
    latents) and one VAE decode (batch 4, 512^2) record every attention
    and GroupNorm call shape of the main path and its calls per request;
 4. K1 flash attention and 5. K2 GroupNorm(+SiLU): each kernel against its
-   plain PyTorch version at every recorded shape, with its time, the plain
-   version's, one PyTorch library call's (a yardstick the port never
-   calls) and the least time the card could take (the bound);
+   plain PyTorch version at every recorded shape, with its device time
+   (launches queued behind a GPU-side sleep, `time_device`), its
+   host-inclusive dispatch time, the plain version's device time, one
+   PyTorch library call's (a yardstick the port never calls) and the
+   least time the card could take (the bound);
 6. unet: one full-width UNet eval in bf16 on the card against the same
    weights in fp32 on the CPU through the plain versions;
 7. serving: the port's HTTP server with a full-width SD1.5 bundle of
@@ -24,6 +27,8 @@ is nonzero and no final line is printed:
    20 steps, CFG 7.5, batch 4); the kernels' launch counts of that run
    must equal the counts derived from the model code;
 8. the kernels line, then the contract's last line.
+Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
+phase with exit code 1.
 Needs the repository (it imports cremage_tpu_torch), one card, and
 nvcc; imports nothing of JAX.
 """
@@ -31,7 +36,9 @@ from __future__ import annotations
 
 import base64
 import dataclasses
+import faulthandler
 import json
+import re
 import subprocess
 import sys
 import time
@@ -41,8 +48,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 STEPS, BATCH, REQUESTS, RES = 20, 4, 2, 512
+# each phase's time limit, in s (all run in well under a minute here). A
+# hang, say a kernel waiting on a wrong barrier phase, ends the run in its
+# phase with a traceback and exit code 1 instead of using up the call. The
+# K1 limit starts with the shapes phase: its model evals are K1's first
+# launches.
+LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180, serving=300)
 PROMPT = "a photograph of an astronaut riding a horse"
 NEGATIVE = "blurry, low quality"
+
+
+def watchdog(phase: str) -> None:
+    faulthandler.dump_traceback_later(LIMITS_S[phase], exit=True)
 
 
 def emit(obj) -> None:
@@ -50,6 +67,8 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Host-inclusive ms per call: events around launches enqueued while
+    the card is idle, so at short kernels they time the host's dispatch."""
     import torch
 
     for _ in range(warmup):
@@ -63,6 +82,57 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SLEEP_CYCLES_PER_S = 2.0e9   # at least the H100's SM clock (1.98 GHz boost)
+
+
+def time_device(fn, reps: int, warmup: int = 3):
+    """(device ms, dispatch ms) per call. The timed launches are enqueued
+    behind a GPU-side sleep (`torch.cuda._sleep`) that outlasts their
+    dispatch, so the events bracket the kernels back to back and not the
+    host; the start event still pending after the enqueue shows that the
+    sleep covered it (else the sleep doubles and it is timed again).
+    Dispatch ms is `time_ms`'s host-inclusive time."""
+    import torch
+
+    dispatch = time_ms(fn, reps, warmup)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    host_s = dispatch * reps / 1e3
+    for _ in range(8):
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S) + 1_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps, dispatch
+        host_s = 2 * max(host_s, enqueue_s)
+    raise RuntimeError("time_device: the GPU sleep never outlasted the enqueue")
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: [registers, spill store bytes]} from `nvcc -Xptxas -v`."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            plan = m.group(1).partition("PlanI")[2]
+            name = (f"flash_fwd_wgmma<{','.join(re.findall(r'Li(\d+)E', plan))}>"
+                    if plan else re.sub(r"^_Z\d+", "", m.group(1))[:40])
+            out[name] = [None, None]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return out
 
 
 def record_shapes(bundle, dev):
@@ -120,7 +190,7 @@ def check_flash(attn, dev):
     import torch.nn.functional as F
 
     from cremage_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_reference,
+        flash_attention, flash_attention_reference, plan_flash,
     )
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -141,15 +211,24 @@ def check_flash(attn, dev):
         # wrong rescale at Nk = 4096 still exceeds it
         tol = 2.0 ** -6 * float(ref.float().abs().max())
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        plan = plan_flash(d, nq, nk)
         flops = 4.0 * b * h * nq * nk * d
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+        ms, dispatch_ms = time_device(lambda: flash_attention(q, k, v), 20)
         row = dict(
             phase="flash_attention", shape=[b, nq, nk, h, d],
+            instantiation=plan.instantiation,
             calls_per_request=calls, max_abs_err=err, tol=tol,
-            ms=time_ms(lambda: flash_attention(q, k, v), 20),
-            plain_ms=time_ms(lambda: flash_attention_reference(q, k, v), 3, 1),
-            library_ms=time_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt), 20),
+            ms=ms, dispatch_ms=dispatch_ms,
+            plain_ms=time_device(
+                lambda: flash_attention_reference(q, k, v), 3, 1)[0],
+            library_ms=time_device(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)[0],
+            # what the kernel computes: d padded to plan.dp, every q row and
+            # key of its tiles (the tails are computed and dropped), Q K^T
+            # once per warpgroup that shares the q rows, P V once
+            padded_flops=2.0 * b * h * plan.q_blocks * plan.bq
+            * -(-nk // plan.bk) * plan.bk * plan.dp * (plan.split + 1),
             flops_ms=flops / PEAK_BF16_FLOPS * 1e3,
             bytes_ms=nbytes / PEAK_BYTES * 1e3)
         row["bound_ms"] = max(row["flops_ms"], row["bytes_ms"])
@@ -191,13 +270,16 @@ def check_groupnorm(gn, dev):
             return F.silu(y) if silu else y
 
         nbytes = 2.0 * 2 * x.numel() + 8 * c
+        ms, dispatch_ms = time_device(
+            lambda: group_norm_silu(x, wt, bt, 32, eps, silu), 20)
         row = dict(
             phase="group_norm_silu", shape=[n, c, h, w], eps=eps, silu=silu,
             calls_per_request=calls, max_abs_err=err, tol=tol,
-            ms=time_ms(lambda: group_norm_silu(x, wt, bt, 32, eps, silu), 20),
-            plain_ms=time_ms(
-                lambda: group_norm_silu_reference(x, wt, bt, 32, eps, silu), 5),
-            library_ms=time_ms(library, 20),
+            ms=ms, dispatch_ms=dispatch_ms,
+            plain_ms=time_device(
+                lambda: group_norm_silu_reference(x, wt, bt, 32, eps, silu),
+                5)[0],
+            library_ms=time_device(library, 20)[0],
             flops_ms=0.0, bytes_ms=nbytes / PEAK_BYTES * 1e3)
         row["bound_ms"] = row["bytes_ms"]
         emit(row)
@@ -360,7 +442,8 @@ def kernel_entry(name, source, replaces, rows, launches):
 
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=total("ms"), plain_ms=total("plain_ms"),
+                ms=total("ms"), dispatch_ms=total("dispatch_ms"),
+                plain_ms=total("plain_ms"),
                 bound_ms=total("bound_ms"),
                 bound_by="operations" if total("flops_ms") > total("bytes_ms")
                 else "bytes",
@@ -392,11 +475,14 @@ def main() -> int:
               cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
               matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32))
 
+    watchdog("build")
     t0 = time.perf_counter()
     lib = build.build()
     build.kernels()
-    emit(dict(phase="build", seconds=time.perf_counter() - t0, library=str(lib)))
+    emit(dict(phase="build", seconds=time.perf_counter() - t0, library=str(lib),
+              ptxas=ptxas_summary((lib.parent / "nvcc.log").read_text())))
 
+    watchdog("shapes_and_k1")
     t0 = time.perf_counter()
     bundle = build_sd15_bundle(dev, dtype=torch.bfloat16, seed=0)
     attn, gn = record_shapes(bundle, dev)
@@ -405,9 +491,13 @@ def main() -> int:
               flash_attention_calls_per_request=sum(attn.values()),
               group_norm_calls_per_request=sum(gn.values())))
     k1_rows = check_flash(attn, dev)
+    watchdog("k2")
     k2_rows = check_groupnorm(gn, dev)
+    watchdog("unet")
     check_unet(bundle, dev)
+    watchdog("serving")
     launches = serve(bundle, dev, card)
+    faulthandler.cancel_dump_traceback_later()
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",
                      "cremage_tpu/ops/flash_attention.py:94", k1_rows,

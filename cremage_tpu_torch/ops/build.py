@@ -1,7 +1,10 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-One `nvcc` call compiles the sources for `sm_90a` into one shared library
-with a plain C interface, loaded with ctypes. The library lands in
+One `nvcc` process per source compiles it for `sm_90a` (all started
+together), and one more links the objects into a shared library with a
+plain C interface, loaded with ctypes. The compilers' output, with
+`-Xptxas -v`'s registers, spills and shared memory per kernel, is kept as
+`nvcc.log` beside the library. The library lands in
 `build/cremage_tpu_torch/<hash>/` beside the package, keyed by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is not. Nothing here runs at import time: the CPU tests import every
@@ -22,17 +25,19 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "cremage_tpu_torch"
 SOURCES = ("flash_attention.cu", "groupnorm.cu")
+HEADERS = ("wgmma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
 
 _vp, _i, _i64, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, o, B, H, Nq, Nk, D, scale, stream
+    # q, k, v, o, B, H, Nq, Nk, D, scale, dp, bk, bq, stages, split, smem,
+    # stream
     "cremage_flash_attention_bf16": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                                     _f, _vp),
+                                     _f, _i, _i, _i, _i, _i, _i, _vp),
     # x, w, b, y, partial, N, C, HW, G, n_chunks, chunk, eps, silu, stream
     "cremage_group_norm_silu_bf16": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i64,
                                      _i, _i, _i64, _f, _i, _vp),
@@ -49,7 +54,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -65,13 +70,24 @@ def build() -> Path:
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(_CSRC / s),
+                                   "-o", str(obj)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
         tmp_lib = Path(tmp) / lib_path.name
-        run = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", *(str(_CSRC / s) for s in SOURCES),
-             "-o", str(tmp_lib)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        run = subprocess.run([nvcc, "-shared", *map(str, objs), "-o",
+                              str(tmp_lib)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
         if run.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{run.stdout}")
+            raise RuntimeError(f"nvcc link failed:\n{run.stdout}")
+        (out_dir / "nvcc.log").write_text(log)
         os.replace(tmp_lib, lib_path)
     return lib_path
 

@@ -9,6 +9,7 @@ function, which the tests and chip_smoke.py also call directly.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -18,6 +19,78 @@ from cremage_tpu_torch.ops.attention import dot_product_attention
 # padded head dims (round_up(d, 16)) the kernel is instantiated for: the
 # main path's d = 40, 80, 160 (UNet) and 512 (VAE mid-block)
 SUPPORTED_PADDED_D = (48, 80, 160, 512)
+
+SMEM_LIMIT = 232448   # shared memory one block can use on an H100
+BOX_COLS = 16         # head-dim columns per TMA box: 32 bytes, the swizzle span
+SWIZZLE_BYTES = 32
+_ALIGN, _BARRIERS = 1024, 128   # the kernel's alignment slack and mbarriers
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How csrc/flash_attention.cu runs one call (its
+    `Plan<DP, BK, SPLIT, NWG>`)."""
+    dp: int            # head dim padded to a multiple of 16
+    bk: int            # keys per tile (wgmma N of Q K^T)
+    split: int         # consumer warpgroups sharing one set of q rows
+    nwg: int           # consumer warpgroups per block
+    bq: int            # q rows per work item
+    q_bufs: int        # q buffers (2: the next item's q loads during this one)
+    stages: int        # K/V ring stages
+    out_cols: tuple    # (first, last + 1) output columns of each of the
+    #                    `split` warpgroups that share one set of q rows
+    q_box: tuple       # TMA box {cols, heads, rows, batch} of q
+    kv_box: tuple      # TMA box of k and v
+    o_box: tuple       # TMA box of o (stored by each warpgroup)
+    smem_bytes: int
+    q_blocks: int      # work items per (batch, head); persistent blocks,
+    #                    one per SM, walk over all B * H * q_blocks items
+
+    @property
+    def instantiation(self) -> str:
+        return (f"flash_fwd_wgmma<Plan<{self.dp}, {self.bk}, {self.split}, "
+                f"{self.nwg}>>")
+
+
+def plan_flash(d: int, nq: int, nk: int) -> FlashPlan:
+    """The kernel's launch plan for head dim d, nq queries and nk keys.
+
+    The key tile fits the call: one 80-key tile up to 80 keys (the 77-key
+    cross-attention, the 64-token self-attention), else 128; 32 at
+    d = 512, where two warpgroups split the 512 output columns over the
+    same 64 q rows and the tiles must fit shared memory. Each consumer
+    warpgroup owns 64 q rows (both share them at d = 512). q is
+    double-buffered where two buffers fit beside a 2-stage ring; the ring
+    has 3 stages where they fit and 2 otherwise."""
+    dp = (d + 15) // 16 * 16
+    if dp not in SUPPORTED_PADDED_D:
+        raise ValueError(f"flash_attention kernel: head dim {d} unsupported")
+    # three consumer warpgroups hide more of the wgmma and softmax latency
+    # where their registers (160 a thread) hold O, S and P; d = 160 and
+    # d = 512 need two (240 a thread)
+    nwg = 3 if dp <= 80 else 2
+    if dp == 512:
+        bk, split = 32, 2
+    else:
+        bk, split = (80 if nk <= 80 else 128), 1
+    bq = 64 * nwg // split
+    row_bytes = BOX_COLS * 2
+    q_bytes = dp // BOX_COLS * bq * row_bytes
+    kv_bytes = dp // BOX_COLS * bk * row_bytes
+
+    def smem(q_bufs, stages):
+        return _ALIGN + q_bufs * q_bytes + stages * 2 * kv_bytes + _BARRIERS
+
+    q_bufs = 2 if smem(2, 2) <= SMEM_LIMIT else 1
+    stages = 3 if smem(q_bufs, 3) <= SMEM_LIMIT else 2
+    dv = dp // split
+    return FlashPlan(
+        dp=dp, bk=bk, split=split, nwg=nwg, bq=bq, q_bufs=q_bufs, stages=stages,
+        out_cols=tuple((w * dv, (w + 1) * dv) for w in range(split)),
+        q_box=(BOX_COLS, 1, bq, 1), kv_box=(BOX_COLS, 1, bk, 1),
+        o_box=(BOX_COLS, 1, 64, 1),
+        smem_bytes=smem(q_bufs, stages),
+        q_blocks=-(-nq // bq))
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
@@ -70,10 +143,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, nq, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
+    if not scale > 0:
+        raise ValueError(f"flash_attention kernel: scale {scale} must be > 0")
+    plan = plan_flash(d, nq, k.shape[1])
     out = torch.empty_like(q)
     err = kernels().cremage_flash_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, nq,
-        k.shape[1], d, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        k.shape[1], d, float(scale), plan.dp, plan.bk, plan.bq, plan.stages,
+        plan.split, plan.smem_bytes,
+        torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
     flash_attention.launches += 1
     return out

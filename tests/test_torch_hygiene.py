@@ -3,6 +3,7 @@ points never fall back to the CPU silently."""
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import pytest
 import torch
@@ -36,3 +37,16 @@ def test_pipeline_without_device_raises_when_cuda_is_absent(monkeypatch):
         SD15Pipeline(bundle=None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_sd15_bundle()
+
+
+def test_port_calls_no_library_attention_or_compile():
+    """The port's attention is its own kernel: no SDPA, no cuDNN attention
+    through the SDP backends, no torch.compile. (chip_smoke.py, outside
+    the package, times SDPA as a yardstick only.)"""
+    pkg = Path(__file__).resolve().parent.parent / "cremage_tpu_torch"
+    banned = ("scaled_dot_product_attention", "torch.compile", "sdp_kernel")
+    found = [f"{path.relative_to(pkg)}: {word}"
+             for path in sorted(pkg.rglob("*"))
+             if path.suffix in (".py", ".cu", ".cuh")
+             for word in banned if word in path.read_text()]
+    assert not found, found

@@ -10,6 +10,8 @@ they also run where jax is not installed:
 `python -m pytest --noconftest tests/test_torch_ops.py -m cuda`.
 """
 import functools
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,8 +19,8 @@ import torch
 
 from cremage_tpu_torch.ops.attention import attention
 from cremage_tpu_torch.ops.flash_attention import (
-    check_kernel_inputs as check_fa_inputs, flash_attention,
-    flash_attention_reference,
+    SMEM_LIMIT, SWIZZLE_BYTES, check_kernel_inputs as check_fa_inputs,
+    flash_attention, flash_attention_reference, plan_flash,
 )
 from cremage_tpu_torch.ops.groupnorm import (
     check_kernel_inputs as check_gn_inputs, group_norm_silu,
@@ -85,6 +87,68 @@ def test_flash_kernel_input_checks():
     with pytest.raises(ValueError, match="aligned"):
         t = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
         check_fa_inputs(t, t, t)
+
+
+# every (Nq, Nk, d) of the main path: UNet self- and cross-attention at
+# 64^2..8^2 latents, the VAE mid-block
+MAIN_PATH_NQ_NK_D = [(4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
+                     (1024, 77, 80), (256, 256, 160), (256, 77, 160),
+                     (64, 64, 160), (64, 77, 160), (4096, 4096, 512)]
+
+
+@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+def test_flash_plan_fits_shared_memory(nq, nk, d):
+    plan = plan_flash(d, nq, nk)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.stages >= 2          # the ring needs a stage to fill ahead
+    assert plan.q_bufs in (1, 2)
+    tiles = plan.q_bufs * plan.q_box[2] + plan.stages * 2 * plan.kv_box[2]
+    assert plan.smem_bytes >= tiles * plan.dp * 2   # q and every K/V stage
+
+
+@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+def test_flash_plan_tma_boxes(nq, nk, d):
+    plan = plan_flash(d, nq, nk)
+    for box in (plan.q_box, plan.kv_box, plan.o_box):
+        inner_bytes = box[0] * 2
+        assert inner_bytes % 16 == 0 and inner_bytes <= SWIZZLE_BYTES
+        assert all(1 <= n <= 256 for n in box)   # TMA's limit per box dim
+        assert plan.dp % box[0] == 0             # whole boxes cover dp
+    assert plan.q_box[2] == plan.bq and plan.kv_box[2] == plan.bk
+    assert plan.q_blocks * plan.bq >= nq > (plan.q_blocks - 1) * plan.bq
+
+
+@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+def test_flash_plan_key_tile(nq, nk, d):
+    plan = plan_flash(d, nq, nk)
+    assert plan.bk % 8 == 0 and plan.bk <= 256   # a wgmma N
+    assert plan.bk % 16 == 0                     # whole k16 steps of P V
+    if nk <= 80:                                 # one tile, no rescale
+        assert plan.bk >= nk
+
+
+@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+def test_flash_plan_output_split_covers_d_once(nq, nk, d):
+    plan = plan_flash(d, nq, nk)
+    cols = [c for lo, hi in plan.out_cols for c in range(lo, hi)]
+    assert sorted(cols) == list(range(plan.dp)) and len(plan.out_cols) == plan.split
+    assert plan.dp >= d and plan.dp % 16 == 0
+    # a warpgroup's fp32 O: 64 rows x its columns over 128 threads
+    assert all((hi - lo) // 2 <= 128 for lo, hi in plan.out_cols)
+
+
+@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D + [(300, 4096, 40),
+                                                         (100, 130, 80),
+                                                         (64, 64, 80)])
+def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
+    """The C entry point dispatches on (dp, bk, split, nwg): the plan must
+    name one of its cases."""
+    src = (Path(__file__).resolve().parent.parent / "cremage_tpu_torch"
+           / "csrc" / "flash_attention.cu").read_text()
+    cases = set(re.findall(r"launch<Plan<(\d+), (\d+), (\d+), (\d+)>>", src))
+    plan = plan_flash(d, nq, nk)
+    assert plan.bq == 64 * plan.nwg // plan.split
+    assert tuple(map(str, (plan.dp, plan.bk, plan.split, plan.nwg))) in cases
 
 
 def _gn_inputs(seed, n, h, c, mean=0.0):
@@ -181,7 +245,15 @@ def cuda():
                                          (2, 300, 77, 4, 40),
                                          (2, 256, 256, 8, 80),
                                          (1, 64, 77, 8, 160),
-                                         (1, 256, 256, 1, 512)])
+                                         (1, 256, 256, 1, 512),
+                                         # the K/V ring: fewer tiles than
+                                         # stages, a ragged last tile, q rows
+                                         # not a multiple of 128
+                                         (2, 100, 64, 4, 80),
+                                         (2, 100, 130, 4, 80),
+                                         (1, 300, 4096, 2, 40),
+                                         (8, 64, 64, 8, 160),
+                                         (1, 1024, 1024, 1, 512)])
 def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                for a in _qkv(d, b, nq, nk, h, d))
