@@ -19,7 +19,9 @@ is nonzero and no final line is printed:
    (launches queued behind a GPU-side sleep, `time_device`), its
    host-inclusive dispatch time, the plain version's device time, one
    PyTorch library call's (a yardstick the port never calls) and the
-   least time the card could take (the bound);
+   least time the card could take (the bound); each K2 row also names
+   its plan (route, cluster size, bytes per CTA) and how many of its
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters);
 6. unet: one full-width UNet eval in bf16 on the card against the same
    weights in fp32 on the CPU through the plain versions;
 7. serving: the port's HTTP server with a full-width SD1.5 bundle of
@@ -116,15 +118,30 @@ def time_device(fn, reps: int, warmup: int = 3):
     raise RuntimeError("time_device: the GPU sleep never outlasted the enqueue")
 
 
+def kernel_name(mangled: str) -> str:
+    """A readable name for a kernel's mangled name in ptxas output."""
+    plan = mangled.partition("PlanI")[2]
+    if plan:
+        return f"flash_fwd_wgmma<{','.join(re.findall(r'Li(\d+)E', plan))}>"
+    # _ZN <len> _GLOBAL__N_<file tag> <len> <name> [IL<type><value>E E]: a
+    # kernel in an anonymous namespace
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    if m:
+        rest = mangled[m.end(1) + int(m.group(1)):]
+        n = re.match(r"\d+", rest)
+        end = n.end() + int(n.group())
+        targ = re.match(r"IL[a-z](\d+)E", rest[end:])
+        return rest[n.end():end] + (f"<{targ.group(1)}>" if targ else "")
+    return re.sub(r"^_Z\d+", "", mangled)[:40]
+
+
 def ptxas_summary(log: str) -> dict:
     """{kernel: [registers, spill store bytes]} from `nvcc -Xptxas -v`."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
-            plan = m.group(1).partition("PlanI")[2]
-            name = (f"flash_fwd_wgmma<{','.join(re.findall(r'Li(\d+)E', plan))}>"
-                    if plan else re.sub(r"^_Z\d+", "", m.group(1))[:40])
+            name = kernel_name(m.group(1))
             out[name] = [None, None]
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
@@ -247,7 +264,8 @@ def check_groupnorm(gn, dev):
     import torch.nn.functional as F
 
     from cremage_tpu_torch.ops.groupnorm import (
-        group_norm_silu, group_norm_silu_reference,
+        active_clusters, group_norm_silu, group_norm_silu_reference,
+        plan_groupnorm,
     )
 
     g = torch.Generator(device=dev).manual_seed(3)
@@ -260,8 +278,10 @@ def check_groupnorm(gn, dev):
         torch.cuda.synchronize()
         ref = group_norm_silu_reference(x, wt, bt, 32, eps, silu)
         err = float((out.float() - ref.float()).abs().max())
-        # both round an fp32 epilogue once; only the statistics' summation
-        # order differs, so at most one bf16 ulp of the largest output
+        # both round an fp32 epilogue once; the statistics' summation order
+        # and the kernel's sigmoid (tanh.approx, absolute error near 2^-12)
+        # differ, which can flip the rounding of an output: one bf16 ulp of
+        # the largest output
         tol = 2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
         wb, bb = wt.bfloat16(), bt.bfloat16()
 
@@ -272,8 +292,13 @@ def check_groupnorm(gn, dev):
         nbytes = 2.0 * 2 * x.numel() + 8 * c
         ms, dispatch_ms = time_device(
             lambda: group_norm_silu(x, wt, bt, 32, eps, silu), 20)
+        plan = plan_groupnorm(n, c, h * w, 32)
         row = dict(
             phase="group_norm_silu", shape=[n, c, h, w], eps=eps, silu=silu,
+            route=plan.route, cluster=plan.cluster,
+            bytes_per_cta=plan.bytes_per_cta,
+            active_clusters=(active_clusters(plan) if plan.route == "cluster"
+                             else None),
             calls_per_request=calls, max_abs_err=err, tol=tol,
             ms=ms, dispatch_ms=dispatch_ms,
             plain_ms=time_device(

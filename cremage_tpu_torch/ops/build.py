@@ -38,9 +38,14 @@ _SIGNATURES = {
     # stream
     "cremage_flash_attention_bf16": (_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
                                      _f, _i, _i, _i, _i, _i, _i, _vp),
+    # x, w, b, y, N, C, HW, G, cluster, piece, sub, smem, eps, silu, stream
+    "cremage_gn_cluster_bf16": (_vp, _vp, _vp, _vp, _i, _i, _i64, _i, _i, _i,
+                                _i, _i, _f, _i, _vp),
+    # cluster, smem, &active
+    "cremage_gn_cluster_occupancy": (_i, _i, _vp),
     # x, w, b, y, partial, N, C, HW, G, n_chunks, chunk, eps, silu, stream
-    "cremage_group_norm_silu_bf16": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i64,
-                                     _i, _i, _i64, _f, _i, _vp),
+    "cremage_gn_two_pass_bf16": (_vp, _vp, _vp, _vp, _vp, _i, _i, _i64, _i, _i,
+                                 _i, _f, _i, _vp),
 }
 
 

@@ -24,7 +24,7 @@ STEPS, BATCH = 20, 4   # the main path's job
 
 FAMILIES = (  # first match wins
     ("flash_attention (K1)", ("flash_fwd",)),
-    ("group_norm_silu (K2)", ("gn_stats", "gn_apply")),
+    ("group_norm_silu (K2)", ("gn_cluster", "gn_stats", "gn_apply")),
     ("layout copies", ("direct_copy", "nchwToNhwc", "nhwcToNchw", "CatArray")),
     ("layer_norm", ("layer_norm",)),
     ("convolution", ("conv", "implicit", "fprop", "cudnn")),

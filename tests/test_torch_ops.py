@@ -22,9 +22,10 @@ from cremage_tpu_torch.ops.flash_attention import (
     SMEM_LIMIT, SWIZZLE_BYTES, check_kernel_inputs as check_fa_inputs,
     flash_attention, flash_attention_reference, plan_flash,
 )
+from cremage_tpu_torch.ops import groupnorm as GN
 from cremage_tpu_torch.ops.groupnorm import (
     check_kernel_inputs as check_gn_inputs, group_norm_silu,
-    group_norm_silu_reference, plan_chunks,
+    group_norm_silu_reference, plan_chunks, plan_groupnorm,
 )
 
 torch.set_num_threads(2)
@@ -231,6 +232,122 @@ def test_groupnorm_chunk_plan_covers_slab(slab):
     assert (n_chunks - 1) * chunk < slab          # no empty chunk
 
 
+# every (N, C, H, W) of K2 on the main path: the UNet at the CFG batch of 8
+# (64^2..8^2 latents), the VAE decoder at batch 4
+MAIN_PATH_GN = [(8, 320, 64, 64), (8, 640, 64, 64), (8, 960, 64, 64),
+                (8, 320, 32, 32), (8, 640, 32, 32), (8, 960, 32, 32),
+                (8, 1280, 32, 32), (8, 1920, 32, 32), (8, 640, 16, 16),
+                (8, 1280, 16, 16), (8, 1920, 16, 16), (8, 2560, 16, 16),
+                (8, 1280, 8, 8), (8, 2560, 8, 8), (4, 512, 64, 64),
+                (4, 512, 128, 128), (4, 512, 256, 256), (4, 256, 256, 256),
+                (4, 256, 512, 512), (4, 128, 512, 512)]
+# edge cases: H*W = 8; a slab not divisible by 8 * k (a short last piece);
+# N * G = 65535, the grid's y limit
+EDGE_GN = [(2, 64, 1, 8), (2, 96, 61, 136), (65535, 1, 1, 64)]
+
+
+def _gn_plan(n, c, h, w, **kw):
+    return plan_groupnorm(n, c, h * w, 32 if c % 32 == 0 else 1, **kw)
+
+
+@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + EDGE_GN)
+def test_groupnorm_plan_covers_slab_once(n, c, h, w):
+    plan = _gn_plan(n, c, h, w)
+    pieces = plan.pieces()
+    assert len(pieces) == plan.ctas
+    assert pieces[0][0] == 0 and pieces[-1][1] == plan.slab
+    assert all(e0 == b1 for (_, e0), (b1, _) in zip(pieces, pieces[1:]))
+    assert all(b < e for b, e in pieces)                  # none empty
+    # 16-byte boundaries, and each 8-vector in one channel plane: pieces
+    # start at multiples of 8 elements and planes are H*W % 8 == 0 long
+    assert plan.piece % 8 == 0 and (h * w) % 8 == 0
+    assert all(b % 8 == 0 and (e - b) % 8 == 0 for b, e in pieces)
+    if plan.route == "cluster":
+        assert plan.sub % 8 == 0 and 1 <= -(-plan.piece // plan.sub) <= GN.MAX_SUB
+
+
+@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + EDGE_GN)
+def test_groupnorm_plan_fits_a_cta(n, c, h, w):
+    plan = _gn_plan(n, c, h, w)
+    assert plan.cluster in GN.CLUSTER_SIZES
+    assert plan.bytes_per_cta <= 227 * 1024
+    if plan.route == "cluster":
+        table = 8 * (plan.slab // (h * w))
+        assert plan.smem_bytes == plan.bytes_per_cta + table
+        assert plan.smem_bytes <= GN.SMEM_LIMIT - GN.STATIC_SMEM_SLACK
+        # the smallest cluster that fits the target, or 16
+        smaller = [k for k in GN.CLUSTER_SIZES if k < plan.cluster]
+        assert all(2 * (-(-plan.slab // (8 * k)) * 8) > GN.PIECE_TARGET
+                   for k in smaller)
+
+
+@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN)
+def test_groupnorm_plan_route(n, c, h, w):
+    """One pass over a cluster-resident slab everywhere but the VAE's 4 MB
+    slab, which no 16-CTA cluster holds."""
+    want = "two_pass" if (n, c, h, w) == (4, 256, 512, 512) else "cluster"
+    assert _gn_plan(n, c, h, w).route == want
+
+
+def test_groupnorm_plan_matches_kernel_constants():
+    src = (Path(__file__).resolve().parent.parent / "cremage_tpu_torch"
+           / "csrc" / "groupnorm.cu").read_text()
+    assert f"kMaxSub = {GN.MAX_SUB};" in src
+    assert f"kSmemLimit = {GN.SMEM_LIMIT};" in src
+
+
+def test_groupnorm_kernel_accepts_the_grid_limit():
+    w = torch.ones(1)
+    check_gn_inputs(torch.zeros(65535, 1, 1, 8, dtype=torch.bfloat16), w, w, 1)
+    with pytest.raises(ValueError, match="groups"):
+        check_gn_inputs(torch.zeros(65536, 1, 1, 8, dtype=torch.bfloat16), w, w, 1)
+
+
+def _gn_partitioned(x, w, b, groups, eps, silu, plan):
+    """The cluster route's arithmetic in plain PyTorch: each slab summed in
+    fp32 piece by piece (each piece sub-chunk by sub-chunk) in the plan's
+    order, the k partials combined in rank order, then one (scale, shift)
+    per channel plane."""
+    n, c = x.shape[:2]
+    xs = x.float().reshape(n * groups, plan.slab)
+    s = ss = 0.0
+    for lo, hi in plan.pieces():
+        ps = pss = 0.0
+        for a in range(lo, hi, plan.sub or plan.piece):
+            v = xs[:, a:min(a + (plan.sub or plan.piece), hi)]
+            ps, pss = ps + v.sum(-1), pss + (v * v).sum(-1)
+        s, ss = s + ps, ss + pss
+    mean = s / plan.slab
+    rstd = torch.rsqrt(torch.clamp(ss / plan.slab - mean * mean, min=0.0) + eps)
+    cg = c // groups
+    sc = rstd.reshape(n, groups, 1) * w.float().reshape(1, groups, cg)
+    sh = b.float().reshape(1, groups, cg) - mean.reshape(n, groups, 1) * sc
+    y = xs.reshape(n, c, -1) * sc.reshape(n, c, 1) + sh.reshape(n, c, 1)
+    if silu:
+        y = y * torch.sigmoid(y)
+    return y.reshape(x.shape)
+
+
+# (N, C, H, W): slabs of 3 channels x 808 (2424 elements, not a multiple of
+# 8 * 16, so the last piece is short) and of one 16384-element channel (two
+# sub-chunks)
+@pytest.mark.parametrize("shape,k", [((2, 96, 8, 101), k) for k in
+                                     GN.CLUSTER_SIZES] + [((1, 32, 128, 128), 1)])
+@pytest.mark.parametrize("eps,silu", [(1e-5, True), (1e-6, False)])
+def test_groupnorm_partitioned_reference(shape, k, eps, silu):
+    n, c, h, w = shape
+    slab = c // 32 * h * w
+    plan = plan_groupnorm(n, c, h * w, 32, target=2 * (-(-slab // (8 * k)) * 8))
+    assert plan.route == "cluster" and plan.cluster == k
+    rng = np.random.RandomState(k)
+    x = torch.from_numpy((rng.randn(*shape) * 2 + 1).astype(np.float32))
+    wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)) for _ in "wb")
+    np.testing.assert_allclose(
+        _gn_partitioned(x, wt, bt, 32, eps, silu, plan).numpy(),
+        group_norm_silu_reference(x, wt, bt, 32, eps, silu).numpy(),
+        atol=1e-6, rtol=1e-6)
+
+
 # ---------------------------------------------------------------- on the card
 
 @pytest.fixture
@@ -266,17 +383,50 @@ def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
     assert float((got.float() - want.float()).abs().max()) <= tol
 
 
+# (N, C, H, W, eps, silu, mean of x (std 2)) and the plan's route: every
+# cluster size, a cluster of 16 beyond the piece target, the two-pass
+# route, a short last piece, |mean| >> std
+GN_CUDA_CASES = [
+    (2, 320, 16, 16, 1e-5, True, 3.0, 1),
+    (1, 128, 64, 64, 1e-6, False, 3.0, 1),
+    (1, 640, 64, 64, 1e-5, False, 0.0, 2),
+    (1, 960, 64, 64, 1e-6, True, 0.0, 4),
+    (1, 512, 128, 128, 1e-5, True, 0.0, 8),
+    (1, 256, 256, 256, 1e-6, True, 0.0, 16),
+    (1, 128, 512, 512, 1e-6, False, 0.0, 16),
+    (1, 256, 512, 512, 1e-6, True, 0.0, "two_pass"),
+    (2, 96, 8, 2053, 1e-5, True, 3.0, 2),
+    (1, 640, 64, 64, 1e-5, True, 20.0, 2),
+    (8, 1280, 8, 8, 1e-6, False, 20.0, 1),
+    (1, 256, 512, 512, 1e-5, False, 20.0, "two_pass"),
+]
+
+
+def test_groupnorm_cuda_cases_cover_the_plans():
+    routes = []
+    for n, c, h, w, _, _, _, want in GN_CUDA_CASES:
+        plan = plan_groupnorm(n, c, h * w, 32)
+        routes.append(plan.cluster if plan.route == "cluster" else plan.route)
+        assert routes[-1] == want, (n, c, h, w)
+    assert set(routes) == set(GN.CLUSTER_SIZES) | {"two_pass"}
+    short = [plan_groupnorm(n, c, h * w, 32) for n, c, h, w, *_ in GN_CUDA_CASES]
+    assert any(p.route == "cluster" and p.cluster > 1 and p.slab % p.piece
+               for p in short)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,h,eps,silu", [(2, 320, 16, 1e-5, True),
-                                            (1, 128, 64, 1e-6, False)])
-def test_groupnorm_kernel_matches_plain(cuda, n, c, h, eps, silu):
-    x, w, b = _gn_inputs(5, n, h, c, 3.0)
-    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(
-        cuda, torch.bfloat16)
-    wt, bt = torch.from_numpy(w).to(cuda), torch.from_numpy(b).to(cuda)
+@pytest.mark.parametrize("n,c,h,w,eps,silu,mean,route", GN_CUDA_CASES)
+def test_groupnorm_kernel_matches_plain(cuda, n, c, h, w, eps, silu, mean,
+                                        route):
+    rng = np.random.RandomState(5)
+    xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + mean).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+              for _ in "wb")
     got = group_norm_silu(xt, wt, bt, 32, eps, silu)
     torch.cuda.synchronize()
     want = group_norm_silu_reference(xt, wt, bt, 32, eps, silu)
-    # only the statistics' summation order differs: one bf16 output ulp
+    # the statistics' summation order and the kernel's sigmoid
+    # (tanh.approx) differ: one bf16 ulp of the largest output
     assert float((got.float() - want.float()).abs().max()) <= \
         2.0 ** -7 * max(1.0, float(want.float().abs().max()))
