@@ -28,7 +28,25 @@ is nonzero and no final line is printed:
    seeded random bf16 weights answers 2 txt2img requests (512^2, Euler A,
    20 steps, CFG 7.5, batch 4); the kernels' launch counts of that run
    must equal the counts derived from the model code;
-8. the kernels line, then the contract's last line.
+8. modes: the server with that bundle and a full-width 9-channel
+   inpainting bundle answers one request of each: img2img from an
+   uploaded 512^2 PNG (DPM++ 2M, strength 0.75, batch 2), inpainting with
+   an uploaded mask (DDIM, batch 2), hires fix "Latent" x1.5 (Euler A,
+   batch 2) and "Lanczos" x2 (Euler, batch 1), MODE_STEPS steps each, each
+   sent twice (the first run pays the first-call set-up of its shapes and
+   is timed apart); each request's launch counts must equal those derived
+   from the model code and its sampler's evaluations, and the inpainted
+   images keep the unmasked pixels of the input;
+9. samplers: each of the 12 menu samplers runs SAMPLER_STEPS steps
+   through the full-width UNet at 64^2 latents, batch 1 with CFG; its
+   launch counts must equal its evaluations times the UNet's calls;
+10. new paths' shapes: hooks record the shape of every K1 and K2 call of
+   the checked run of each modes request and of the samplers phase (the
+   recorded calls must add up to the launch counts), and the same checks
+   as 4 and 5 run at every shape the main path's rows do not hold; each
+   row lists the paths that run its shape with their calls per request;
+11. the kernels line (per-request totals over the main path's shapes, as
+   before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
 Needs the repository (it imports cremage_tpu_torch), one card, and
@@ -37,6 +55,7 @@ nvcc; imports nothing of JAX.
 from __future__ import annotations
 
 import base64
+import contextlib
 import dataclasses
 import faulthandler
 import json
@@ -50,12 +69,16 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 STEPS, BATCH, REQUESTS, RES = 20, 4, 2, 512
-# each phase's time limit, in s (all run in well under a minute here). A
-# hang, say a kernel waiting on a wrong barrier phase, ends the run in its
-# phase with a traceback and exit code 1 instead of using up the call. The
-# K1 limit starts with the shapes phase: its model evals are K1's first
-# launches.
-LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180, serving=300)
+# the new paths' depth: steps of the modes phase's requests (6 steps in an
+# img2img or hires pass at strength 0.75) and of the samplers phase
+# (widths are the full model's)
+MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
+# each phase's time limit, in s. A hang, say a kernel waiting on a wrong
+# barrier phase, ends the run in its phase with a traceback and exit code
+# 1 instead of using up the call. The K1 limit starts with the shapes
+# phase: its model evals are K1's first launches.
+LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
+                serving=300, modes=300, samplers=240, new_shapes=480)
 PROMPT = "a photograph of an astronaut riding a horse"
 NEGATIVE = "blurry, low quality"
 
@@ -152,17 +175,17 @@ def ptxas_summary(log: str) -> dict:
     return out
 
 
-def record_shapes(bundle, dev):
-    """Run one UNet eval at the CFG batch and one VAE decode, recording the
-    (shape -> calls) of every K1 and K2 call per request."""
-    import torch
-
+@contextlib.contextmanager
+def recording(*bundles):
+    """While open, count the K1 and K2 calls of the bundles' UNets and VAEs
+    by shape: yields (attn, gn, weight), where each call adds weight["n"]
+    (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
 
     attn, gn = {}, {}
-    weight = {"n": 0}
+    weight = {"n": 1}
 
     def add(table, key):
         table[key] = table.get(key, 0) + weight["n"]
@@ -180,29 +203,67 @@ def record_shapes(bundle, dev):
         add(gn, tuple(args[0].shape) + (mod.eps, mod.fuse_silu))
 
     hooks = []
-    for m in list(bundle.unet.modules()) + list(bundle.vae.modules()):
-        if isinstance(m, CrossAttention):
-            hooks.append(m.register_forward_pre_hook(on_cross))
-        elif isinstance(m, AttnBlock):
-            hooks.append(m.register_forward_pre_hook(on_vae_attn))
-        elif isinstance(m, GroupNorm):
-            hooks.append(m.register_forward_pre_hook(on_gn))
-    g = torch.Generator(device=dev).manual_seed(1)
-    lat = RES // 8
-    with torch.no_grad():
-        weight["n"] = STEPS
-        bundle.unet(torch.randn(2 * BATCH, 4, lat, lat, device=dev, generator=g),
-                    torch.full((2 * BATCH,), 500.0, device=dev),
-                    torch.randn(2 * BATCH, 77, 768, device=dev, generator=g))
-        weight["n"] = 1
-        bundle.vae.decode(torch.randn(BATCH, 4, lat, lat, device=dev, generator=g))
-    torch.cuda.synchronize()
-    for h in hooks:
-        h.remove()
+    for bundle in bundles:
+        for m in list(bundle.unet.modules()) + list(bundle.vae.modules()):
+            if isinstance(m, CrossAttention):
+                hooks.append(m.register_forward_pre_hook(on_cross))
+            elif isinstance(m, AttnBlock):
+                hooks.append(m.register_forward_pre_hook(on_vae_attn))
+            elif isinstance(m, GroupNorm):
+                hooks.append(m.register_forward_pre_hook(on_gn))
+    try:
+        yield attn, gn, weight
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def record_shapes(bundle, runs):
+    """Run each (calls, fn) of `runs` once; -> the shape -> calls per
+    request of every K1 and K2 call, a shape seen in a run counting
+    `calls` times."""
+    import torch
+
+    with recording(bundle) as (attn, gn, weight), torch.no_grad():
+        for calls, fn in runs:
+            weight["n"] = calls
+            fn()
+        torch.cuda.synchronize()
     return attn, gn
 
 
+def unet_eval(bundle, dev, batch, lat, seed):
+    """One UNet call at (batch, 4, lat, lat) with a 77-token context."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda: bundle.unet(
+        torch.randn(batch, 4, lat, lat, device=dev, generator=g),
+        torch.full((batch,), 500.0, device=dev),
+        torch.randn(batch, 77, 768, device=dev, generator=g))
+
+
+def vae_call(bundle, dev, method, shape, seed):
+    """One VAE encode or decode of a random NCHW input of `shape`."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return lambda: getattr(bundle.vae, method)(
+        torch.randn(*shape, device=dev, generator=g))
+
+
+def main_path_runs(bundle, dev):
+    """The main path's request: 20 UNet evals at the CFG batch of 8 and
+    one decode at batch 4, 512^2."""
+    lat = RES // 8
+    return [(STEPS, unet_eval(bundle, dev, 2 * BATCH, lat, 1)),
+            (1, vae_call(bundle, dev, "decode", (BATCH, 4, lat, lat), 1))]
+
+
 def check_flash(attn, dev):
+    """K1 against its plain version at each shape of `attn`
+    ({(B, Nq, Nk, H, d): {path: calls per request}}): error, device,
+    dispatch, plain and library times, bound. -> {shape: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -211,7 +272,7 @@ def check_flash(attn, dev):
     )
 
     g = torch.Generator(device=dev).manual_seed(2)
-    rows = []
+    rows = {}
     for (b, nq, nk, h, d), calls in sorted(attn.items()):
         q = torch.randn(b, nq, h, d, device=dev, generator=g).bfloat16()
         k = torch.randn(b, nk, h, d, device=dev, generator=g).bfloat16()
@@ -235,7 +296,7 @@ def check_flash(attn, dev):
         row = dict(
             phase="flash_attention", shape=[b, nq, nk, h, d],
             instantiation=plan.instantiation,
-            calls_per_request=calls, max_abs_err=err, tol=tol,
+            calls_by_path=calls, max_abs_err=err, tol=tol,
             ms=ms, dispatch_ms=dispatch_ms,
             plain_ms=time_device(
                 lambda: flash_attention_reference(q, k, v), 3, 1)[0],
@@ -253,13 +314,16 @@ def check_flash(attn, dev):
         if not err <= tol:
             raise AssertionError(f"flash_attention {row['shape']}: max abs "
                                  f"error {err} > {tol}")
-        rows.append(row)
+        rows[(b, nq, nk, h, d)] = row
         del q, k, v, out, ref, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
 
 
 def check_groupnorm(gn, dev):
+    """K2 against its plain version at each shape of `gn`
+    ({(N, C, H, W, eps, silu): {path: calls per request}}), as
+    check_flash. -> {shape: row}."""
     import torch
     import torch.nn.functional as F
 
@@ -269,7 +333,7 @@ def check_groupnorm(gn, dev):
     )
 
     g = torch.Generator(device=dev).manual_seed(3)
-    rows = []
+    rows = {}
     for (n, c, h, w, eps, silu), calls in sorted(gn.items()):
         x = (torch.randn(n, c, h, w, device=dev, generator=g) * 2 + 1).bfloat16()
         wt = torch.randn(c, device=dev, generator=g)
@@ -294,12 +358,13 @@ def check_groupnorm(gn, dev):
             lambda: group_norm_silu(x, wt, bt, 32, eps, silu), 20)
         plan = plan_groupnorm(n, c, h * w, 32)
         row = dict(
-            phase="group_norm_silu", shape=[n, c, h, w], eps=eps, silu=silu,
+            phase="group_norm_silu", shape=[n, c, h, w], eps=eps,
+            silu=silu,
             route=plan.route, cluster=plan.cluster,
             bytes_per_cta=plan.bytes_per_cta,
             active_clusters=(active_clusters(plan) if plan.route == "cluster"
                              else None),
-            calls_per_request=calls, max_abs_err=err, tol=tol,
+            calls_by_path=calls, max_abs_err=err, tol=tol,
             ms=ms, dispatch_ms=dispatch_ms,
             plain_ms=time_device(
                 lambda: group_norm_silu_reference(x, wt, bt, 32, eps, silu),
@@ -311,8 +376,29 @@ def check_groupnorm(gn, dev):
         if not err <= tol:
             raise AssertionError(f"group_norm_silu {row['shape']}: max abs "
                                  f"error {err} > {tol}")
-        rows.append(row)
+        rows[(n, c, h, w, eps, silu)] = row
+        del x, out, ref
+        torch.cuda.empty_cache()
     return rows
+
+
+def check_new_paths(paths, k1_rows, k2_rows, dev):
+    """K1 and K2 at every shape that `paths` ({path: (attn, gn)}, each a
+    shape -> calls per request) ran and no row of k1_rows / k2_rows holds;
+    a held shape gets the path added to its row's calls_by_path. ->
+    ({shape: row} of K1, of K2) for the shapes checked here."""
+    out = []
+    for i, (held, check) in enumerate(((k1_rows, check_flash),
+                                       (k2_rows, check_groupnorm))):
+        todo = {}
+        for path, tables in paths.items():
+            for key, calls in tables[i].items():
+                if key in held:
+                    held[key]["calls_by_path"][path] = calls
+                else:
+                    todo.setdefault(key, {})[path] = calls
+        out.append(check(todo, dev))
+    return tuple(out)
 
 
 def check_unet(bundle, dev):
@@ -352,62 +438,65 @@ def check_unet(bundle, dev):
                              f"error {rel} > {tol}")
 
 
-def serve(bundle, dev, card):
-    import urllib.request
+def count(module, kind) -> int:
+    return sum(isinstance(m, kind) for m in module.modules())
 
-    import numpy as np
-    import torch
 
-    from cremage_tpu_torch.app.server import ApiServer, register_sd15
-    from cremage_tpu_torch.app.worker import EngineWorker
-    from cremage_tpu_torch.io.png import GENERATION_DATA_KEY, decode_png
+def kernel_calls(bundle, evals: int, encodes: int, decodes: int):
+    """(K1, K2) launches of a request from the model code: one launch per
+    attention / GroupNorm module call; each UNet evaluation (the CFG
+    batch in one call) runs every UNet module once, each encode and
+    decode every module of that half of the VAE."""
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
-    from cremage_tpu_torch.ops.flash_attention import flash_attention
-    from cremage_tpu_torch.ops.groupnorm import group_norm_silu
-    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline
 
-    def count(module, kind):
-        return sum(isinstance(m, kind) for m in module.modules())
+    vae = bundle.vae
+    return (evals * count(bundle.unet, CrossAttention)
+            + encodes * count(vae.encoder, AttnBlock)
+            + decodes * count(vae.decoder, AttnBlock),
+            evals * count(bundle.unet, GroupNorm)
+            + encodes * count(vae.encoder, GroupNorm)
+            + decodes * count(vae.decoder, GroupNorm))
 
-    # one launch per module call: every UNet attention / GroupNorm runs
-    # once per sampler step, the VAE's once per decode
-    want_k1 = REQUESTS * (STEPS * count(bundle.unet, CrossAttention)
-                          + count(bundle.vae, AttnBlock))
-    want_k2 = REQUESTS * (STEPS * count(bundle.unet, GroupNorm)
-                          + count(bundle.vae, GroupNorm))
 
-    decoded = []
-    hook = bundle.vae.decoder.register_forward_hook(
-        lambda m, a, out: decoded.append(bool(torch.isfinite(out).all())))
-    worker = EngineWorker()
-    register_sd15(worker, SD15Pipeline(bundle, device=dev))
-    srv = ApiServer(worker=worker, port=0)
-    srv.start()
-    url = f"http://127.0.0.1:{srv.port}"
+# UNet evaluations of each menu sampler over n steps: the two-stage ones
+# evaluate twice a step but at the last (plain Euler to sigma 0); DDIM
+# runs one step per timestep of range(0, 1000, 1000 // n)
+TWO_STAGE = ("Heun", "DPM2", "DPM2 A", "DPM++ 2S A", "DPM++ SDE")
 
-    def submit(seed, steps):
-        body = json.dumps({
-            "generator_model_type": "SD 1.5", "mode": "text_to_image",
-            "parameters": {
-                "prompt": PROMPT, "negative_prompt": NEGATIVE,
-                "H": RES, "W": RES, "sampling_steps": steps,
-                "sampler": "Euler A", "scale": 7.5, "seed": seed,
-                "n_samples": BATCH, "n_iter": 1,
-                "safety_check": False, "watermark": False}}).encode()
-        req = urllib.request.Request(url + "/v1/generate", data=body,
-                                     method="POST",
-                                     headers={"Content-Type": "application/json"})
-        urllib.request.urlopen(req, timeout=30).read()
 
-    def drain(n_jobs):
-        msgs, done, end = [], 0, time.time() + 600
+def sampler_evals(name: str, n: int) -> int:
+    if name == "DDIM":
+        return len(range(0, 1000, 1000 // n))
+    return 2 * n - 1 if name in TWO_STAGE else n
+
+
+class Client:
+    """The JSON API of one running ApiServer."""
+
+    def __init__(self, url: str):
+        self.url = url
+
+    def call(self, path: str, body=None):
+        import urllib.request
+
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(
+            self.url + path, data=data, method="GET" if body is None else "POST",
+            headers={"Content-Type": "application/json"})
+        return json.loads(urllib.request.urlopen(req, timeout=60).read())
+
+    def generate(self, mode: str, params: dict):
+        self.call("/v1/generate", {"generator_model_type": "SD 1.5",
+                                   "mode": mode, "parameters": params})
+
+    def drain(self, n_jobs: int, limit_s: float = 600):
+        msgs, done, end = [], 0, time.time() + limit_s
         while done < n_jobs:
             if time.time() > end:
-                raise TimeoutError(f"{done}/{n_jobs} jobs done in 600 s")
-            got = json.loads(urllib.request.urlopen(
-                url + "/v1/status", timeout=60).read())["messages"]
+                raise TimeoutError(f"{done}/{n_jobs} jobs done in {limit_s} s")
+            got = self.call("/v1/status")["messages"]
             for m in got:
                 if isinstance(m, dict) and "job_done" in m:
                     if not m["job_done"]["ok"]:
@@ -418,28 +507,82 @@ def serve(bundle, dev, card):
                 time.sleep(0.02)
         return msgs
 
+
+def served_images(msgs):
+    """(pixels, generation_data) of every PNG among the status messages;
+    raises on a PNG without generation_data."""
+    from cremage_tpu_torch.io.png import GENERATION_DATA_KEY, decode_png
+
+    out = []
+    for m in msgs:
+        if isinstance(m, dict) and "image_b64" in m:
+            rgb, text = decode_png(base64.b64decode(m["image_b64"]))
+            if GENERATION_DATA_KEY not in text:
+                raise AssertionError(f"PNG without generation_data: {sorted(text)}")
+            out.append((rgb, json.loads(text[GENERATION_DATA_KEY])))
+    return out
+
+
+def reset_counts():
+    from cremage_tpu_torch.ops.flash_attention import flash_attention
+    from cremage_tpu_torch.ops.groupnorm import group_norm_silu
+
+    flash_attention.launches = 0
+    group_norm_silu.launches = 0
+
+
+def read_counts():
+    from cremage_tpu_torch.ops.flash_attention import flash_attention
+    from cremage_tpu_torch.ops.groupnorm import group_norm_silu
+
+    return flash_attention.launches, group_norm_silu.launches
+
+
+def serve(bundle, dev, card):
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import ApiServer, register_sd15
+    from cremage_tpu_torch.app.worker import EngineWorker
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline
+
+    want_k1, want_k2 = (REQUESTS * k for k in
+                        kernel_calls(bundle, STEPS, 0, 1))
+    decoded = []
+    hook = bundle.vae.decoder.register_forward_hook(
+        lambda m, a, out: decoded.append(bool(torch.isfinite(out).all())))
+    worker = EngineWorker()
+    register_sd15(worker, SD15Pipeline(bundle, device=dev))
+    srv = ApiServer(worker=worker, port=0)
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+
+    def params(seed, steps):
+        return {"prompt": PROMPT, "negative_prompt": NEGATIVE,
+                "H": RES, "W": RES, "sampling_steps": steps,
+                "sampler": "Euler A", "scale": 7.5, "seed": seed,
+                "n_samples": BATCH, "n_iter": 1,
+                "safety_check": False, "watermark": False}
+
     try:
-        submit(100, 2)                # warm-up: first-call set-up of cuDNN
-        drain(1)                      # and cuBLAS, not counted or timed
-        decoded.clear()
-        flash_attention.launches = 0
-        group_norm_silu.launches = 0
+        client.generate("text_to_image", params(100, 2))  # warm-up: first-call
+        client.drain(1)                   # set-up of cuDNN and cuBLAS, not
+        decoded.clear()                   # counted or timed
+        reset_counts()
         t0 = time.perf_counter()
         for r in range(REQUESTS):
-            submit(r * BATCH, STEPS)
-        msgs = drain(REQUESTS)
+            client.generate("text_to_image", params(r * BATCH, STEPS))
+        msgs = client.drain(REQUESTS)
         wall = time.perf_counter() - t0
-        k1, k2 = flash_attention.launches, group_norm_silu.launches
+        k1, k2 = read_counts()
     finally:
         hook.remove()
         srv.stop()
 
-    images = [m for m in msgs if isinstance(m, dict) and "image_b64" in m]
     pixels = []
-    for m in images:
-        rgb, text = decode_png(base64.b64decode(m["image_b64"]))
-        if rgb.shape != (RES, RES, 3) or GENERATION_DATA_KEY not in text:
-            raise AssertionError(f"bad PNG: {rgb.shape}, {sorted(text)}")
+    for rgb, _ in served_images(msgs):
+        if rgb.shape != (RES, RES, 3):
+            raise AssertionError(f"bad PNG: {rgb.shape}")
         pixels.append(rgb)
     stds = [float(np.std(p.astype(np.float32))) for p in pixels]
     emit(dict(phase="serving", card=card, requests=REQUESTS,
@@ -459,22 +602,227 @@ def serve(bundle, dev, card):
     return {"flash_attention": k1, "group_norm_silu": k2}
 
 
-def kernel_entry(name, source, replaces, rows, launches):
-    """Per-request totals over the main path's shapes: each shape's time
-    times its calls per request."""
-    def total(key):
-        return sum(r[key] * r["calls_per_request"] for r in rows)
+def test_image(res: int):
+    """A smooth (res, res, 3) uint8 test picture and a mask (white where
+    to inpaint: a centred block), both as RGB."""
+    import numpy as np
 
+    yy, xx = np.mgrid[0:res, 0:res] / res
+    rgb = np.stack([np.sin(7 * xx + 2 * yy), np.cos(5 * yy - 3 * xx),
+                    np.sin(4 * (xx + yy) + 1)], -1)
+    img = np.round((rgb * 0.45 + 0.5) * 255).astype(np.uint8)
+    mask = np.zeros((res, res, 3), np.uint8)
+    mask[res // 4:3 * res // 4, res // 4:3 * res // 4] = 255
+    return img, mask
+
+
+def modes(bundle, inpaint_bundle, dev, card, res=RES, steps=MODE_STEPS):
+    """One request of each new mode through /v1/generate, images uploaded
+    through /v1/upload, each sent twice; per request: the seconds of both
+    runs, and of the second its PNGs checked, its K1/K2 launches against
+    the counts derived from the model code, and the shape of each launch.
+    -> (rows, {request: (K1 shapes, K2 shapes)}), each a shape -> calls."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import ApiServer, register_sd15
+    from cremage_tpu_torch.app.worker import EngineWorker
+    from cremage_tpu_torch.io.png import encode_png
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline
+
+    t_enc = max(1, int(STRENGTH * steps))     # as the pipeline computes it
+    init, mask = test_image(res)
+    base = {"prompt": PROMPT, "negative_prompt": NEGATIVE, "H": res, "W": res,
+            "sampling_steps": steps, "scale": 7.5, "strength": STRENGTH,
+            "safety_check": False, "watermark": False, "n_iter": 1}
+    # (name, mode, parameters, batch, side of the images, UNet evals,
+    # encodes, decodes)
+    requests = [
+        ("img2img", "image_to_image",
+         dict(sampler="DPM++ 2M", n_samples=2), 2, res, t_enc, 1, 1),
+        ("inpainting", "inpainting", dict(sampler="DDIM", n_samples=2), 2,
+         res, sampler_evals("DDIM", steps), 1, 1),
+        ("hires Latent x1.5", "text_to_image",
+         dict(sampler="Euler A", n_samples=2, use_hires_fix=True,
+              hires_fix_upscaler="Latent", hires_fix_scale_factor=1.5), 2,
+         int(res // 8 * 1.5) // 8 * 64, steps + t_enc, 0, 1),
+        ("hires Lanczos x2", "text_to_image",
+         dict(sampler="Euler", n_samples=1, use_hires_fix=True,
+              hires_fix_upscaler="Lanczos", hires_fix_scale_factor=2.0), 1,
+         res * 2, steps + t_enc, 1, 2),
+    ]
+    finite = []
+    hooks = [b.vae.decoder.register_forward_hook(
+        lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        for b in (bundle, inpaint_bundle)]
+    worker = EngineWorker()
+    register_sd15(worker, SD15Pipeline(bundle, device=dev),
+                  SD15Pipeline(inpaint_bundle, device=dev))
+    rows, shapes = [], {}
+    with tempfile.TemporaryDirectory() as uploads:
+        srv = ApiServer(worker=worker, port=0, upload_dir=uploads)
+        srv.start()
+        client = Client(f"http://127.0.0.1:{srv.port}")
+        try:
+            paths = {k: client.call("/v1/upload", {
+                "image": base64.b64encode(encode_png(a)).decode()})["path"]
+                for k, a in (("init_img", init), ("mask_img", mask))}
+            for seed, (name, mode, extra, batch, side, evals, enc, dec) in \
+                    enumerate(requests):
+                params = dict(base, seed=1000 + seed, **extra)
+                if mode != "text_to_image":
+                    params["init_img"] = paths["init_img"]
+                if mode == "inpainting":
+                    params["mask_img"] = paths["mask_img"]
+                # twice: the first run pays the first-call set-up of its
+                # new shapes (cuDNN, cuBLAS); the second is the one checked
+                walls = []
+                for _ in range(2):
+                    finite.clear()
+                    reset_counts()
+                    with recording(bundle, inpaint_bundle) as (attn, gn, _):
+                        t0 = time.perf_counter()
+                        client.generate(mode, params)
+                        msgs = client.drain(1)
+                        walls.append(time.perf_counter() - t0)
+                    k1, k2 = read_counts()
+                shapes[name] = (attn, gn)
+                want = kernel_calls(bundle, evals, enc, dec)
+                images = served_images(msgs)
+                stds = [float(np.std(p.astype(np.float32))) for p, _ in images]
+                kept = None
+                if mode == "inpainting":   # the unmasked pixels, up to PNG
+                    keep = mask[..., 0] == 0             # rounding
+                    kept = max(int(np.abs(p[keep].astype(int)
+                                          - init[keep].astype(int)).max())
+                               for p, _ in images)
+                row = dict(phase="modes", request=name, card=card,
+                           sampler=params["sampler"], steps=steps,
+                           batch=batch, seconds=walls[1],
+                           first_call_seconds=walls[0],
+                           images=[list(p.shape) for p, _ in images],
+                           decodes_finite=list(finite), pixel_std=stds,
+                           unmasked_max_diff=kept,
+                           flash_attention_launches=k1,
+                           group_norm_silu_launches=k2,
+                           expected_flash_attention=want[0],
+                           expected_group_norm_silu=want[1],
+                           recorded_calls=[sum(attn.values()),
+                                           sum(gn.values())])
+                emit(row)
+                if len(images) != batch or any(
+                        p.shape != (side, side, 3) for p, _ in images):
+                    raise AssertionError(f"{name}: images {row['images']}, "
+                                         f"want {batch} of {side}^2")
+                if any(m["mode"] != mode or m["sampler"] != params["sampler"]
+                       for _, m in images):
+                    raise AssertionError(f"{name}: generation_data of another job")
+                if len(finite) != dec or not all(finite) or min(stds) <= 0.0:
+                    raise AssertionError(f"{name}: expected {dec} finite "
+                                         "decodes and non-constant images")
+                if kept is not None and kept > 1:
+                    raise AssertionError(f"{name}: unmasked pixels moved by "
+                                         f"{kept} > 1")
+                if not (k1, k2) == want == tuple(row["recorded_calls"]):
+                    raise AssertionError(
+                        f"{name}: kernel launches {(k1, k2)}, derived {want}"
+                        f", recorded {row['recorded_calls']} differ")
+                rows.append(row)
+        finally:
+            for h in hooks:
+                h.remove()
+            srv.stop()
+    return rows, shapes
+
+
+def samplers(bundle, dev, card, res=RES, steps=SAMPLER_STEPS):
+    """Each menu sampler for `steps` steps through the UNet at batch 1
+    with CFG; its latents finite, its launches its evaluations' worth.
+    -> (rows, (K1 shapes, K2 shapes)), each a shape -> calls over the 12
+    runs."""
+    import torch
+
+    from cremage_tpu_torch.core.config import GenerationOptions
+    from cremage_tpu_torch.core.rng import GeneratorNoise
+    from cremage_tpu_torch.pipelines.sd15 import SAMPLER_MENU, SD15Pipeline
+
+    pipe = SD15Pipeline(bundle, device=dev)
+    rows, attn, gn = [], {}, {}
+    for i, name in enumerate(SAMPLER_MENU):
+        opts = GenerationOptions(prompt=PROMPT, negative_prompt=NEGATIVE,
+                                 H=res, W=res, sampling_steps=steps,
+                                 sampler=name, scale=7.5, n_samples=1,
+                                 safety_check=False)
+        with torch.no_grad():
+            c, uc = pipe._conditioning(opts, 1)
+            reset_counts()
+            with recording(bundle) as (r_attn, r_gn, _):
+                t0 = time.perf_counter()
+                lat = pipe.txt2img_latents(opts, c, uc, GeneratorNoise(i, dev))
+                finite = bool(torch.isfinite(lat).all())  # waits for the card
+                wall = time.perf_counter() - t0
+        k1, k2 = read_counts()
+        for table, run in ((attn, r_attn), (gn, r_gn)):
+            for key, n in run.items():
+                table[key] = table.get(key, 0) + n
+        evals = sampler_evals(name, steps)
+        want = kernel_calls(bundle, evals, 0, 0)
+        row = dict(phase="samplers", sampler=name, card=card, steps=steps,
+                   unet_evals=evals, seconds=wall, finite=finite,
+                   latent_std=float(lat.float().std()),
+                   flash_attention_launches=k1, group_norm_silu_launches=k2,
+                   expected_flash_attention=want[0],
+                   expected_group_norm_silu=want[1],
+                   recorded_calls=[sum(r_attn.values()), sum(r_gn.values())])
+        emit(row)
+        if not row["finite"] or lat.shape != (1, res // 8, res // 8, 4):
+            raise AssertionError(f"{name}: latents {tuple(lat.shape)}, finite "
+                                 f"{row['finite']}")
+        if not (k1, k2) == want == tuple(row["recorded_calls"]):
+            raise AssertionError(f"{name}: kernel launches {(k1, k2)}, derived"
+                                 f" {want}, recorded {row['recorded_calls']}"
+                                 " differ")
+        rows.append(row)
+    return rows, (attn, gn)
+
+
+def kernel_entry(name, source, replaces, rows, launches, path_launches):
+    """Per-request totals over the main path's shapes (each shape's time
+    times its calls per request), as earlier slices report them; the other
+    paths' totals beside them (`new_paths`), and `launches_by_phase` the
+    counts of the modes and samplers phases' runs."""
+    def total(key, path):
+        return sum(r[key] * r["calls_by_path"][path] for r in rows
+                   if path in r["calls_by_path"])
+
+    def on(path):
+        return [r for r in rows if path in r["calls_by_path"]]
+
+    main = on("main")
+    paths = dict.fromkeys(p for r in rows for p in r["calls_by_path"])
     return dict(name=name, route="cuda", source=source, replaces=replaces,
-                launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=total("ms"), dispatch_ms=total("dispatch_ms"),
-                plain_ms=total("plain_ms"),
-                bound_ms=total("bound_ms"),
-                bound_by="operations" if total("flops_ms") > total("bytes_ms")
-                else "bytes",
-                library_ms=total("library_ms"),
-                calls_per_request=sum(r["calls_per_request"] for r in rows),
-                shapes=len(rows))
+                launches=launches,
+                max_abs_err=max(r["max_abs_err"] for r in main),
+                ms=total("ms", "main"), dispatch_ms=total("dispatch_ms", "main"),
+                plain_ms=total("plain_ms", "main"),
+                bound_ms=total("bound_ms", "main"),
+                bound_by="operations" if total("flops_ms", "main")
+                > total("bytes_ms", "main") else "bytes",
+                library_ms=total("library_ms", "main"),
+                calls_per_request=sum(r["calls_by_path"]["main"] for r in main),
+                shapes=len(main),
+                launches_by_phase=path_launches,
+                new_paths={p: dict(
+                    shapes=len(on(p)),
+                    max_abs_err=max(r["max_abs_err"] for r in on(p)),
+                    max_err_over_tol=max(r["max_abs_err"] / r["tol"]
+                                         for r in on(p)),
+                    calls_per_request=sum(r["calls_by_path"][p] for r in on(p)),
+                    **{k: total(k, p) for k in ("ms", "dispatch_ms", "plain_ms",
+                                                "bound_ms", "library_ms")})
+                    for p in paths if p != "main"})
 
 
 def main() -> int:
@@ -510,26 +858,51 @@ def main() -> int:
     watchdog("shapes_and_k1")
     t0 = time.perf_counter()
     bundle = build_sd15_bundle(dev, dtype=torch.bfloat16, seed=0)
-    attn, gn = record_shapes(bundle, dev)
+    attn, gn = record_shapes(bundle, main_path_runs(bundle, dev))
     emit(dict(phase="shapes", bundle_s=time.perf_counter() - t0,
               flash_attention_shapes=len(attn), group_norm_shapes=len(gn),
               flash_attention_calls_per_request=sum(attn.values()),
               group_norm_calls_per_request=sum(gn.values())))
-    k1_rows = check_flash(attn, dev)
+    k1_rows = check_flash({k: {"main": n} for k, n in attn.items()}, dev)
     watchdog("k2")
-    k2_rows = check_groupnorm(gn, dev)
+    k2_rows = check_groupnorm({k: {"main": n} for k, n in gn.items()}, dev)
     watchdog("unet")
     check_unet(bundle, dev)
     watchdog("serving")
     launches = serve(bundle, dev, card)
+    watchdog("modes")
+    inpaint_bundle = build_sd15_bundle(dev, dtype=torch.bfloat16, seed=1,
+                                       inpaint=True)
+    mode_rows, paths = modes(bundle, inpaint_bundle, dev, card)
+    del inpaint_bundle
+    torch.cuda.empty_cache()
+    watchdog("samplers")
+    sampler_rows, paths["samplers"] = samplers(bundle, dev, card)
+    watchdog("new_shapes")
+    for path, (p_attn, p_gn) in paths.items():
+        emit(dict(phase="shapes", path=path,
+                  flash_attention_shapes=len(p_attn),
+                  group_norm_shapes=len(p_gn),
+                  flash_attention_calls_per_request=sum(p_attn.values()),
+                  group_norm_calls_per_request=sum(p_gn.values())))
+    new_k1, new_k2 = check_new_paths(paths, k1_rows, k2_rows, dev)
     faulthandler.cancel_dump_traceback_later()
+
+    def by_phase(key):
+        return {"modes": sum(r[key] for r in mode_rows),
+                "samplers": sum(r[key] for r in sampler_rows)}
+
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",
-                     "cremage_tpu/ops/flash_attention.py:94", k1_rows,
-                     launches["flash_attention"]),
+                     "cremage_tpu/ops/flash_attention.py:94",
+                     list(k1_rows.values()) + list(new_k1.values()),
+                     launches["flash_attention"],
+                     by_phase("flash_attention_launches")),
         kernel_entry("group_norm_silu", "cremage_tpu_torch/csrc/groupnorm.cu",
-                     "cremage_tpu/ops/groupnorm.py:66", k2_rows,
-                     launches["group_norm_silu"]),
+                     "cremage_tpu/ops/groupnorm.py:66",
+                     list(k2_rows.values()) + list(new_k2.values()),
+                     launches["group_norm_silu"],
+                     by_phase("group_norm_silu_launches")),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -5,25 +5,37 @@ EngineWorker with the same JSON contract:
   POST /v1/generate   job dict (reference mp protocol), returns job id
   GET  /v1/status     drain pending status/result messages
   GET  /v1/health     liveness + devices + kernel launch counts
+  GET  /v1/meta       the model types, modes and samplers served
+  POST /v1/upload     {"image": b64 PNG} -> {"path": staged file}, the path
+                      a job's init_img / mask_img names
 
-Run `python -m cremage_tpu_torch.app.server --port N` to serve an SD1.5
-bundle on the GPU. The port has no checkpoint loader yet, so the bundle's
-weights are random, made from --seed.
+Run `python -m cremage_tpu_torch.app.server --port N [--inpaint]` to serve
+an SD1.5 bundle on the GPU (with --inpaint also the 9-channel inpainting
+bundle, for mode "inpainting"). The port has no checkpoint loader yet, so
+the bundles' weights are random, made from --seed.
 """
 from __future__ import annotations
 
 import base64
+import binascii
 import json
 import logging
+import os
 import queue
 import threading
+import uuid
+import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
+import numpy as np
+
+from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
-    GENERATOR_MODEL_TYPES, GMT_SD_1_5, GenerationOptions,
+    GENERATOR_MODEL_TYPES, GMT_SD_1_5, GenerationOptions, MODE_INPAINTING,
 )
+from cremage_tpu_torch.io.png import decode_png, encode_png, read_png
 
 logger = logging.getLogger(__name__)
 
@@ -36,6 +48,7 @@ class BadRequest(ValueError):
 MAX_EDGE = 4096
 MAX_STEPS = 1000
 MAX_BATCH = 64
+MAX_B64_BYTES = 64 * 1024 * 1024
 
 # job-dict envelope keys (reference mp protocol); everything else is a
 # generation parameter and belongs under job["parameters"]
@@ -84,17 +97,50 @@ def _validate_generate(job) -> Optional[str]:
     return None
 
 
+def _stage_upload(data: str, directory: str) -> str:
+    """Decode a b64 PNG, convert it to RGB and save it under `directory`
+    as the JAX server's /v1/upload does; returns the file's path."""
+    if not isinstance(data, str):
+        raise BadRequest("image must be a b64 string")
+    if len(data) > MAX_B64_BYTES:
+        raise BadRequest(f"image payload exceeds {MAX_B64_BYTES} bytes")
+    try:
+        rgb, _ = decode_png(base64.b64decode(data), "RGB", MAX_EDGE)
+    except (ValueError, binascii.Error, zlib.error) as e:
+        raise BadRequest(f"undecodable image payload (the port reads "
+                         f"8-bit PNGs): {e}") from e
+    path = os.path.join(directory, f"upload_{uuid.uuid4().hex[:12]}.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(rgb))
+    return path
+
+
 class ApiServer:
     def __init__(self, worker: Optional[EngineWorker] = None,
-                 host: str = "127.0.0.1", port: int = 8787):
+                 host: str = "127.0.0.1", port: int = 8787,
+                 upload_dir: Optional[str] = None):
         self.worker = worker or EngineWorker()
         self.host = host
         self.port = port
+        self.upload_dir = upload_dir
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._job_counter = 0
         self._counter_lock = threading.Lock()
 
     def handle(self, method: str, path: str, body: Dict[str, Any]):
+        if path == "/v1/meta":
+            from cremage_tpu_torch.pipelines.sd15 import MODES, SAMPLER_MENU
+
+            return {"model_types": [GMT_SD_1_5], "modes": list(MODES),
+                    "samplers": list(SAMPLER_MENU),
+                    "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU)}}
+        if path == "/v1/upload" and method == "POST":
+            if not isinstance(body, dict) or "image" not in body:
+                raise BadRequest("body must be {\"image\": <b64 PNG>}")
+            if self.upload_dir is None:
+                self.upload_dir = dirs.upload_dir()
+            os.makedirs(self.upload_dir, exist_ok=True)
+            return {"path": _stage_upload(body["image"], self.upload_dir)}
         if path == "/v1/health":
             import torch
 
@@ -203,12 +249,34 @@ class ApiServer:
         self.worker.stop()
 
 
-def register_sd15(worker: EngineWorker, pipe) -> None:
-    """Serve `pipe` (an SD15Pipeline) as the "SD 1.5" backend."""
+def load_image(params: dict, key: str) -> Optional[np.ndarray]:
+    """The job's `key` image file as the JAX backend reads it: mask_img as
+    (H, W) grey in [0, 1], any other as (H, W, 3) RGB in [-1, 1]; None when
+    the parameter is unset or names no file."""
+    p = params.get(key)
+    if not p or not os.path.exists(p):
+        return None
+    if key == "mask_img":
+        return read_png(p, "L", MAX_EDGE).astype(np.float32) / 255.0
+    return read_png(p, "RGB", MAX_EDGE).astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
+def register_sd15(worker: EngineWorker, pipe, inpaint_pipe=None) -> None:
+    """Serve `pipe` (an SD15Pipeline) as the "SD 1.5" backend, and send
+    mode "inpainting" to `inpaint_pipe` (one on the 9-channel UNet)."""
     def factory():
         def generate(params, status_cb, result_cb):
             opts = GenerationOptions.from_dict(params)
-            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+            target = pipe
+            if opts.mode == MODE_INPAINTING:
+                if inpaint_pipe is None:
+                    raise ValueError("inpainting needs the 9-channel inpaint "
+                                     "bundle, which this server was not "
+                                     "started with (--inpaint)")
+                target = inpaint_pipe
+            target.generate(opts, status_cb=status_cb, result_cb=result_cb,
+                            init_image=load_image(params, "init_img"),
+                            mask_image=load_image(params, "mask_img"))
         return generate
 
     worker.register_backend(GMT_SD_1_5, factory)
@@ -224,10 +292,15 @@ def main():  # pragma: no cover
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the bundle's random weights")
+    p.add_argument("--inpaint", action="store_true",
+                   help="also build the 9-channel inpainting bundle")
     args = p.parse_args()
     logging.basicConfig(level=logging.INFO)
     worker = EngineWorker()
-    register_sd15(worker, SD15Pipeline(build_sd15_bundle(seed=args.seed)))
+    inpaint = (SD15Pipeline(build_sd15_bundle(seed=args.seed, inpaint=True))
+               if args.inpaint else None)
+    register_sd15(worker, SD15Pipeline(build_sd15_bundle(seed=args.seed)),
+                  inpaint)
     ApiServer(worker=worker, host=args.host, port=args.port).start(block=True)
 
 

@@ -28,8 +28,10 @@ GENERATOR_MODEL_TYPES = [
     GMT_KANDINSKY_2_2, GMT_HUNYUAN_DIT, GMT_FLUX_1_SCHNELL, GMT_SVD,
 ]
 
-# Generation mode of txt2img (const.py:4); the only one the port runs.
+# Generation modes the port runs (reference const.py:4-6).
 MODE_TEXT_TO_IMAGE = "text_to_image"
+MODE_IMAGE_TO_IMAGE = "image_to_image"
+MODE_INPAINTING = "inpainting"
 
 
 @dataclass

@@ -1,21 +1,33 @@
-"""Seed / RNG semantics and the sampler's noise sources.
+"""Seed / RNG semantics and the samplers' noise sources.
 
 Behavior contract with the reference (as cremage_tpu/core/rng.py):
 - a job seed of -1 means "draw a fresh random seed";
 - image ``i`` of a batch job uses ``seed + i``: the noise of a batch
   starting at image index i comes from seed + i.
 
-torch cannot reproduce JAX's threefry keys, so the pipeline draws its
-initial and per-step noise from an injectable `NoiseSource`. The default
-is `GeneratorNoise`, a `torch.Generator` on the pipeline's device seeded
+torch cannot reproduce JAX's threefry keys, so the pipeline draws every
+random number from an injectable `NoiseSource`. The default is
+`GeneratorNoise`, one `torch.Generator` on the pipeline's device seeded
 with seed + index; parity tests pass an `ArrayNoise` holding the arrays
-the JAX pipeline drew. Noise is drawn in float32, in the JAX layout
-(NHWC latents).
+the JAX pipeline drew. Noise is drawn in float32, in the JAX layout (NHWC
+latents). The draws of one batch, with the JAX key each stands for
+(`key` = key_for_image(seed, index)):
+
+- `initial`: the initial latent noise, normal(key);
+- `encode`: the img2img / hires stochastic encode's noise (k-space or
+  DDIM), normal(key) at the sampling shape;
+- `step(i, shape, draw)`: draw `draw` of sampler step i, from
+  split(key, n * per_step).reshape(n, per_step)[i, draw] (DPM++ SDE makes
+  two draws a step, every other sampler one);
+- `posterior`: the VAE posterior sample of img2img's init image,
+  normal(fold_in(key, 7));
+- `hires()`: the source of the hires fix's second pass, whose key is
+  fold_in(key, 1).
 """
 from __future__ import annotations
 
 import secrets
-from typing import Protocol, Sequence, Tuple
+from typing import Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,45 +58,95 @@ class NoiseSource(Protocol):
     def initial(self, shape: Tuple[int, ...]) -> torch.Tensor:
         """Standard-normal initial latent noise."""
 
-    def step(self, i: int, shape: Tuple[int, ...]) -> torch.Tensor:
-        """Standard-normal noise of sampler step i."""
+    def encode(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Standard-normal noise of a stochastic encode (img2img, hires)."""
+
+    def step(self, i: int, shape: Tuple[int, ...],
+             draw: int = 0) -> torch.Tensor:
+        """Standard-normal noise `draw` of sampler step i."""
+
+    def posterior(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Standard-normal noise of the VAE posterior sample."""
+
+    def hires(self) -> "NoiseSource":
+        """The noise source of the hires fix's second pass."""
 
 
 class GeneratorNoise:
     """Default source: one torch.Generator per batch, seeded with
-    seed + image index, on the pipeline's device."""
+    seed + image index, on the pipeline's device. Every draw, the hires
+    pass's included, comes from it in the order the pipeline asks."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = torch.device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
 
-    def initial(self, shape):
+    def _draw(self, shape):
         return torch.randn(shape, generator=self.gen, device=self.device,
                            dtype=torch.float32)
 
-    def step(self, i, shape):
-        return torch.randn(shape, generator=self.gen, device=self.device,
-                           dtype=torch.float32)
+    def initial(self, shape):
+        return self._draw(shape)
+
+    def encode(self, shape):
+        return self._draw(shape)
+
+    def step(self, i, shape, draw=0):
+        return self._draw(shape)
+
+    def posterior(self, shape):
+        return self._draw(shape)
+
+    def hires(self):
+        return self
 
 
 class ArrayNoise:
-    """Noise handed over as arrays (the initial noise, then one array per
-    sampler step), e.g. the ones the JAX pipeline drew."""
+    """Noise handed over as arrays, e.g. the ones the JAX pipeline drew:
+    the initial noise, then one entry per sampler step (an array, or a
+    sequence of arrays where a step makes several draws), and optionally
+    the encode and posterior noise and the hires pass's own ArrayNoise.
+    Asking for a draw that was not handed over raises."""
 
-    def __init__(self, initial: np.ndarray, steps: Sequence[np.ndarray],
-                 device):
+    def __init__(self, initial: Optional[np.ndarray],
+                 steps: Sequence = (), device="cpu", *,
+                 encode: Optional[np.ndarray] = None,
+                 posterior: Optional[np.ndarray] = None,
+                 hires: Optional["ArrayNoise"] = None):
         self.device = torch.device(device)
         self._initial = initial
         self._steps = list(steps)
+        self._encode = encode
+        self._posterior = posterior
+        self._hires = hires
 
-    def _take(self, arr, shape):
+    def _take(self, arr, shape, what):
+        if arr is None:
+            raise ValueError(f"ArrayNoise: no {what} noise was handed over")
         t = torch.tensor(np.asarray(arr, np.float32), device=self.device)
         if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"noise shape {tuple(t.shape)} != {tuple(shape)}")
+            raise ValueError(f"{what} noise shape {tuple(t.shape)} != "
+                             f"{tuple(shape)}")
         return t
 
     def initial(self, shape):
-        return self._take(self._initial, shape)
+        return self._take(self._initial, shape, "initial")
 
-    def step(self, i, shape):
-        return self._take(self._steps[i], shape)
+    def encode(self, shape):
+        return self._take(self._encode, shape, "encode")
+
+    def step(self, i, shape, draw=0):
+        s = self._steps[i]
+        if isinstance(s, (list, tuple)):
+            s = s[draw]
+        elif draw:
+            raise ValueError(f"ArrayNoise: step {i} holds one draw")
+        return self._take(s, shape, f"step {i}")
+
+    def posterior(self, shape):
+        return self._take(self._posterior, shape, "posterior")
+
+    def hires(self):
+        if self._hires is None:
+            raise ValueError("ArrayNoise: no hires noise was handed over")
+        return self._hires

@@ -83,11 +83,10 @@ def load_from_jax(module: nn.Module, params: Mapping,
     return module
 
 
-def load_vae_decoder(module: nn.Module, params: Mapping) -> nn.Module:
-    """Takes the decoder and post_quant_conv subtrees of a JAX
-    AutoencoderKL parameter tree (the encoder is not ported)."""
-    return load_from_jax(module, {k: params[k]
-                                  for k in ("decoder", "post_quant_conv")})
+def load_vae(module: nn.Module, params: Mapping) -> nn.Module:
+    """A JAX AutoencoderKL parameter tree (encoder, decoder, quant_conv,
+    post_quant_conv) into the port's AutoencoderKL."""
+    return load_from_jax(module, params)
 
 
 def load_clip(module: nn.Module, params: Mapping) -> nn.Module:

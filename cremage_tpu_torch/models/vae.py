@@ -1,18 +1,19 @@
-"""KL autoencoder decoder (SD first stage) in PyTorch, NCHW — the port of
-the decoder half of cremage_tpu/models/vae.py.
+"""KL autoencoder (SD first stage) in PyTorch, NCHW — the port of
+cremage_tpu/models/vae.py.
 
 Architecture contract: CompVis AutoencoderKL (v1-inference.yaml
 first_stage_config: ch=128, ch_mult=(1,2,4,4), num_res_blocks=2, z=4, no
 attention except mid). Module names follow the `first_stage_model.*`
-checkpoint keys (`decoder.up.3.block.0.norm1.weight`, `post_quant_conv`).
+checkpoint keys (`encoder.down.0.downsample.conv.weight`,
+`decoder.up.3.block.0.norm1.weight`, `quant_conv`, `post_quant_conv`).
 The JAX package folds nearest-2x + 3x3 conv into one 2x2-phase conv; here
-it is the plain nearest upsample followed by the same 3x3 conv. The
-encoder is not ported yet.
+it is the plain nearest upsample followed by the same 3x3 conv. Every
+GroupNorm is kernel K2 on CUDA, each mid-block attention kernel K1.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,7 @@ class VAEConfig:
     ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
     num_res_blocks: int = 2
     z_channels: int = 4
+    in_channels: int = 3
     out_ch: int = 3
     scale_factor: float = 0.18215
     shift_factor: float = 0.0
@@ -73,6 +75,19 @@ class AttnBlock(nn.Module):
         return x + self.proj_out(o)
 
 
+class DownsampleVAE(nn.Module):
+    """Pad (0, 1, 0, 1), then a 3x3 stride-2 conv without padding: the
+    asymmetric padding of the torch checkpoints, which nn.Conv2d's own
+    padding cannot express."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, stride=2)
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class Upsample(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
@@ -90,12 +105,50 @@ class _Mid(nn.Module):
         self.block_2 = ResnetBlock(ch, ch)
 
 
+class _Down(nn.Module):
+    def __init__(self, blocks, downsample):
+        super().__init__()
+        self.block = nn.ModuleList(blocks)
+        if downsample is not None:
+            self.downsample = downsample
+
+
 class _Up(nn.Module):
     def __init__(self, blocks, upsample):
         super().__init__()
         self.block = nn.ModuleList(blocks)
         if upsample is not None:
             self.upsample = upsample
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        self.cfg = cfg
+        ch = cfg.ch
+        self.conv_in = Conv2d(cfg.in_channels, ch, 3, padding=1)
+        down = []
+        for level, mult in enumerate(cfg.ch_mult):
+            blocks = []
+            for _ in range(cfg.num_res_blocks):
+                blocks.append(ResnetBlock(ch, cfg.ch * mult))
+                ch = cfg.ch * mult
+            last = level == len(cfg.ch_mult) - 1
+            down.append(_Down(blocks, None if last else DownsampleVAE(ch)))
+        self.down = nn.ModuleList(down)
+        self.mid = _Mid(ch)
+        self.norm_out = GroupNorm(ch, 32, eps=1e-6, fuse_silu=True)
+        self.conv_out = Conv2d(ch, 2 * cfg.z_channels, 3, padding=1)
+
+    def forward(self, x):
+        h = self.conv_in(x.to(self.cfg.dtype))
+        for level in self.down:
+            for blk in level.block:
+                h = blk(h)
+            if hasattr(level, "downsample"):
+                h = level.downsample(h)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        return self.conv_out(self.norm_out(h))
 
 
 class Decoder(nn.Module):
@@ -129,16 +182,40 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """Decoder half: decode(z NCHW) = decoder(post_quant_conv(z))."""
+    """encode(x NCHW) -> (mean, logvar) of the posterior; decode(z NCHW)."""
 
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
+        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.z_channels, 1)
         self.post_quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, 1)
+
+    def encode(self, x):
+        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)
+        return mean, torch.clamp(logvar, -30.0, 20.0)
 
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z.to(self.cfg.dtype)))
+
+
+def encode_to_latent(vae: AutoencoderKL, x: torch.Tensor,
+                     posterior_noise: Optional[Callable] = None
+                     ) -> torch.Tensor:
+    """Image (B, H, W, 3) in [-1, 1] -> scaled latent (B, h, w, C) in the
+    model dtype: z = (mean - shift) * scale, or, given `posterior_noise`
+    (shape -> standard-normal float32 noise of that NHWC shape), the
+    posterior sample mean + exp(0.5 logvar) * noise, with the noise cast
+    to the model dtype first, as the JAX package draws it."""
+    mean, logvar = vae.encode(x.permute(0, 3, 1, 2).contiguous())
+    z = mean
+    if posterior_noise is not None:
+        b, c, h, w = mean.shape
+        eps = posterior_noise((b, h, w, c)).permute(0, 3, 1, 2).to(mean.dtype)
+        z = mean + torch.exp(0.5 * logvar) * eps
+    z = (z - vae.cfg.shift_factor) * vae.cfg.scale_factor
+    return z.permute(0, 2, 3, 1)
 
 
 def decode_from_latent(vae: AutoencoderKL, z: torch.Tensor) -> torch.Tensor:

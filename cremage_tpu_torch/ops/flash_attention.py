@@ -21,6 +21,10 @@ from cremage_tpu_torch.ops.attention import dot_product_attention
 SUPPORTED_PADDED_D = (48, 80, 160, 512)
 
 SMEM_LIMIT = 232448   # shared memory one block can use on an H100
+# the plain version computes at most this many bytes of fp32 logits at once
+# (a (batch item, head group) at a time beyond it): the hires fix's 16,384
+# tokens would need 17 GB for all 16 heads of one call at once
+PLAIN_LOGIT_BYTES = 1 << 30
 BOX_COLS = 16         # head-dim columns per TMA box: 32 bytes, the swizzle span
 SWIZZLE_BYTES = 32
 _ALIGN, _BARRIERS = 1024, 128   # the kernel's alignment slack and mbarriers
@@ -98,8 +102,19 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               scale: Optional[float] = None) -> torch.Tensor:
     """Plain version: unmasked fp32-softmax attention, probabilities cast
     to v's dtype before PV (cremage_tpu/ops/attention.py
-    `dot_product_attention_xla` without a mask)."""
-    return dot_product_attention(q, k, v, scale=scale)
+    `dot_product_attention_xla` without a mask), over groups of heads of
+    at most PLAIN_LOGIT_BYTES of logits."""
+    b, nq, h, _ = q.shape
+    per_head = 4 * nq * k.shape[1]
+    if b * h * per_head <= PLAIN_LOGIT_BYTES:
+        return dot_product_attention(q, k, v, scale=scale)
+    out = torch.empty_like(q)
+    hc = max(1, min(h, PLAIN_LOGIT_BYTES // per_head))
+    for i in range(b):
+        for h0 in range(0, h, hc):
+            sl = (slice(i, i + 1), slice(None), slice(h0, h0 + hc))
+            out[sl] = dot_product_attention(q[sl], k[sl], v[sl], scale=scale)
+    return out
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,

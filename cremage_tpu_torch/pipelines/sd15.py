@@ -1,14 +1,21 @@
-"""SD1.5 txt2img pipeline (the port of the txt2img path of
-cremage_tpu/pipelines/sd15.py).
+"""SD1.5 pipeline: txt2img, img2img and inpainting, with hires fix (the
+port of cremage_tpu/pipelines/sd15.py).
 
 Behavior contract: prompt weighting + chunking + filler-pad, clip_skip,
-Euler A sampling with batched [uncond; cond] CFG, a batch loop with
-per-image seed = seed + i, the VAE decode quantized to uint8 on the
-device, `generation_parameters` metadata, and the "i / n" step statuses
-and per-image result callback of the JAX pipeline.
+the reference's 12-name sampler menu (DDIM + the 11 k-diffusion names of
+samplers/kdiffusion.py) with batched [uncond; cond] CFG, img2img from the
+VAE encoder's posterior sample with t_enc = max(1, int(strength * steps)),
+inpainting through the 9-channel UNet with [x, mask, masked-image latent]
+conditioning and the result composited over the unmasked pixels, hires fix
+("Latent" nearest or "Lanczos" pixel upscale, then img2img at the new
+size), a batch loop with per-image seed = seed + i, the VAE decode
+quantized to uint8 on the device, `generation_parameters` metadata, and
+the "i / n" step statuses and per-image result callback of the JAX
+pipeline.
 
 The sampler state is NHWC float32 as in the JAX package; the UNet runs in
-NCHW on the pipeline's device. Every unported option raises
+NCHW on the pipeline's device. Every random number comes from the batch's
+`NoiseSource` (core/rng.py). Every unported option raises
 NotImplementedError instead of being ignored.
 """
 from __future__ import annotations
@@ -21,27 +28,35 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from cremage_tpu_torch.core.config import GenerationOptions, MODE_TEXT_TO_IMAGE
+from cremage_tpu_torch.core.config import (
+    GenerationOptions, MODE_IMAGE_TO_IMAGE, MODE_INPAINTING, MODE_TEXT_TO_IMAGE,
+)
 from cremage_tpu_torch.core.rng import (
     GeneratorNoise, NoiseSource, resolve_device, resolve_seed,
 )
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.layers import set_compute_dtype
 from cremage_tpu_torch.models.unet import UNetConfig, UNetModel, sd15_unet_config
-from cremage_tpu_torch.models.vae import AutoencoderKL, VAEConfig, decode_from_latent
+from cremage_tpu_torch.models.vae import (
+    AutoencoderKL, VAEConfig, decode_from_latent, encode_to_latent,
+)
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
+from cremage_tpu_torch.samplers import ddim as DDIM
+from cremage_tpu_torch.samplers import kdiffusion as K
 from cremage_tpu_torch.samplers import schedules as S
 from cremage_tpu_torch.samplers.denoiser import EpsDenoiser, cfg_denoiser
-from cremage_tpu_torch.samplers.kdiffusion import sample_euler_ancestral
 from cremage_tpu_torch.utils.image import device_to_img01
+from cremage_tpu_torch.utils.resize import resize
 
 logger = logging.getLogger(__name__)
 
 StatusCb = Callable[[str], None]
 NoiseFactory = Callable[[int, torch.device], NoiseSource]
 
-SUPPORTED_SAMPLERS = ("Euler A",)
+# the reference's menu, as the JAX server's /v1/meta lists it
+SAMPLER_MENU = ("DDIM",) + tuple(sorted(K.SAMPLER_SCHEDULE))
+MODES = (MODE_TEXT_TO_IMAGE, MODE_IMAGE_TO_IMAGE, MODE_INPAINTING)
 
 
 @dataclasses.dataclass
@@ -53,6 +68,11 @@ class SD15Bundle:
     vae: AutoencoderKL
     schedule: S.DiscreteSchedule
 
+    @property
+    def inpaint(self) -> bool:
+        """Whether the UNet is the 9-channel inpainting one."""
+        return self.unet.cfg.in_channels == 9
+
 
 def _noop_status(msg: str) -> None:
     pass
@@ -62,9 +82,8 @@ def check_supported(opts: GenerationOptions) -> None:
     """Raise NotImplementedError for every option this port does not run
     yet (the JAX pipeline runs them all)."""
     unsupported = {
-        "sampler": opts.sampler not in SUPPORTED_SAMPLERS,
-        "mode": opts.mode != MODE_TEXT_TO_IMAGE,
-        "use_hires_fix": bool(opts.use_hires_fix),
+        "sampler": opts.sampler not in SAMPLER_MENU,
+        "mode": opts.mode not in MODES,
         "control_net": bool(opts.control_net),
         "face_input_img": bool(opts.face_input_img or opts.face_model),
         "safety_check": bool(opts.safety_check),
@@ -82,8 +101,8 @@ def check_supported(opts: GenerationOptions) -> None:
     if bad:
         vals = {k: getattr(opts, k, None) for k in bad}
         raise NotImplementedError(
-            f"the PyTorch SD1.5 pipeline runs txt2img with the "
-            f"{SUPPORTED_SAMPLERS} sampler only; not ported: {vals}")
+            f"the PyTorch SD1.5 pipeline runs the modes {MODES} with the "
+            f"samplers {SAMPLER_MENU}; not ported: {vals}")
 
 
 class SD15Pipeline:
@@ -102,30 +121,148 @@ class SD15Pipeline:
             return t[None].expand((batch,) + t.shape)
         return tile(c), tile(uc)
 
-    def _eps_model(self, x, t, cond):
-        """NHWC latents in, NHWC eps out; the UNet runs NCHW."""
-        out = self.bundle.unet(x.permute(0, 3, 1, 2).contiguous(), t, cond)
-        return out.permute(0, 2, 3, 1)
+    def _eps_model(self, extra: Optional[torch.Tensor] = None):
+        """eps(x, t, cond): NHWC latents in, NHWC eps out; the UNet runs
+        NCHW. `extra` (the inpainting channels) is tiled over the CFG
+        batch and appended after x's channels, as the JAX package
+        concatenates them channel-last."""
+        unet = self.bundle.unet
+
+        def eps(x, t, cond):
+            if extra is not None:
+                ec = extra.repeat(x.shape[0] // extra.shape[0], 1, 1, 1)
+                x = torch.cat([x, ec.to(x.dtype)], dim=-1)
+            return unet(x.permute(0, 3, 1, 2).contiguous(), t, cond) \
+                .permute(0, 2, 3, 1)
+        return eps
 
     def _sigma0(self, opts) -> float:
-        """Initial-noise scale of Euler A: the schedule's first sampling
-        sigma."""
-        return float(self.bundle.schedule.get_sigmas(opts.sampling_steps)[0])
+        """Initial-noise scale: k-diffusion's x = N(0, 1) * sigma_max of
+        the sampler's schedule; DDIM starts from unit noise."""
+        if opts.sampler == "DDIM":
+            return 1.0
+        if K.SAMPLER_SCHEDULE[opts.sampler] == "model":
+            return float(self.bundle.schedule.get_sigmas(opts.sampling_steps)[0])
+        return self.bundle.schedule.sigma_max
+
+    def _sample(self, opts: GenerationOptions, x_init: Optional[torch.Tensor],
+                c, uc, noise: NoiseSource, steps: int,
+                t_enc: Optional[int] = None,
+                init_latent: Optional[torch.Tensor] = None,
+                extra: Optional[torch.Tensor] = None,
+                status_cb: StatusCb = _noop_status) -> torch.Tensor:
+        """Run the selected sampler; with t_enc, partial denoising from
+        init_latent after a stochastic encode (img2img)."""
+        name, scale = opts.sampler, float(opts.scale)
+        total = t_enc if t_enc is not None else steps
+
+        def progress(i):
+            status_cb(f"{i + 1} / {total}")
+
+        sched = self.bundle.schedule
+        if name == "DDIM":
+            ddim = DDIM.make_ddim_schedule(sched.alphas_cumprod, steps,
+                                           eta=opts.ddim_eta)
+            eps_cfg = cfg_denoiser(self._eps_model(extra), c, uc, scale)
+            if t_enc is None:
+                return DDIM.sample(eps_cfg, x_init, ddim, noise,
+                                   progress_cb=progress)
+            xt = DDIM.stochastic_encode(
+                init_latent, ddim, t_enc - 1,
+                noise.encode(tuple(init_latent.shape)))
+            return DDIM.sample(eps_cfg, xt, ddim, noise, t_start=t_enc,
+                               progress_cb=progress)
+        if K.SAMPLER_SCHEDULE[name] == "model":
+            sigmas = sched.get_sigmas(steps)
+        else:
+            sigmas = S.get_sigmas_karras(steps, sched.sigma_min,
+                                         sched.sigma_max)
+        kwargs = {}
+        if name in K.CHURN_SAMPLERS:
+            kwargs = dict(s_churn=opts.sampler_s_churn,
+                          s_tmin=opts.sampler_s_tmin,
+                          s_tmax=opts.sampler_s_tmax,
+                          s_noise=opts.sampler_s_noise)
+        den = cfg_denoiser(EpsDenoiser(self._eps_model(extra), sched),
+                           c, uc, scale)
+        x = x_init
+        if t_enc is not None:       # k-space stochastic encode
+            sigmas = S.truncate_for_img2img(sigmas, t_enc)
+            x = init_latent.float() + noise.encode(
+                tuple(init_latent.shape)) * float(sigmas[0])
+        return K.SAMPLERS[name](den, x, sigmas, noise, progress_cb=progress,
+                                **kwargs)
 
     def txt2img_latents(self, opts: GenerationOptions, c, uc,
                         noise: NoiseSource,
                         status_cb: StatusCb = _noop_status) -> torch.Tensor:
-        """-> (B, H/f, W/f, 4) float32 latents."""
+        """-> (B, H/f, W/f, 4) float32 latents (hires fix included)."""
         h, w = opts.H // opts.f, opts.W // opts.f
         b = c.shape[0]
         x = noise.initial((b, h, w, self.bundle.unet.cfg.out_channels)) * \
             self._sigma0(opts)
-        steps = opts.sampling_steps
-        den = cfg_denoiser(EpsDenoiser(self._eps_model, self.bundle.schedule),
-                           c, uc, float(opts.scale))
-        return sample_euler_ancestral(
-            den, x, self.bundle.schedule.get_sigmas(steps), noise,
-            progress_cb=lambda i: status_cb(f"{i + 1} / {steps}"))
+        lat = self._sample(opts, x, c, uc, noise, opts.sampling_steps,
+                           status_cb=status_cb)
+        if opts.use_hires_fix and opts.hires_fix_scale_factor > 1.0:
+            lat = self._hires_fix(opts, lat, c, uc, noise.hires(), status_cb)
+        return lat
+
+    def _hires_fix(self, opts, lat, c, uc, noise: NoiseSource, status_cb):
+        """Upscale the latent ("Latent": nearest; "Lanczos": decode, a
+        Lanczos-3 pixel resize, encode), then img2img at the new size.
+        New latent sides are int(side * factor) rounded down to a multiple
+        of 8, at least 8."""
+        f = opts.hires_fix_scale_factor
+        b, h, w, ch = lat.shape
+        nh, nw = max(int(h * f) // 8 * 8, 8), max(int(w * f) // 8 * 8, 8)
+        vae = self.bundle.vae
+        if opts.hires_fix_upscaler.lower() == "lanczos":
+            img = resize(decode_from_latent(vae, lat), (nh * 8, nw * 8),
+                         "lanczos3")
+            up = encode_to_latent(vae, img.to(torch.bfloat16))
+        else:
+            up = resize(lat, (nh, nw), "nearest")
+        t_enc = max(1, int(opts.strength * opts.sampling_steps))
+        return self._sample(opts, None, c, uc, noise, opts.sampling_steps,
+                            t_enc=t_enc, init_latent=up, status_cb=status_cb)
+
+    def _image(self, image: np.ndarray) -> torch.Tensor:
+        """(H, W, 3) float host image -> (1, H, W, 3) bf16 on the device."""
+        return torch.as_tensor(np.asarray(image, np.float32))[None].to(
+            self.device, torch.bfloat16)
+
+    def img2img_latents(self, opts: GenerationOptions, init_image: np.ndarray,
+                        c, uc, noise: NoiseSource,
+                        status_cb: StatusCb = _noop_status) -> torch.Tensor:
+        """init_image: (H, W, 3) float in [-1, 1]; encoded once, at batch
+        1, with the posterior sampled, then broadcast over the batch."""
+        lat = encode_to_latent(self.bundle.vae, self._image(init_image),
+                               posterior_noise=noise.posterior)
+        lat = lat.expand((c.shape[0],) + lat.shape[1:]).float()
+        t_enc = max(1, int(opts.strength * opts.sampling_steps))
+        return self._sample(opts, None, c, uc, noise, opts.sampling_steps,
+                            t_enc=t_enc, init_latent=lat, status_cb=status_cb)
+
+    def inpaint_latents(self, opts: GenerationOptions, init_image: np.ndarray,
+                        mask: np.ndarray, c, uc, noise: NoiseSource,
+                        status_cb: StatusCb = _noop_status):
+        """9-channel inpainting: the UNet sees [x, mask, masked-image
+        latent]. init_image (H, W, 3) in [-1, 1]; mask (H, W) in [0, 1],
+        1 where to inpaint, binarized at 0.5. -> (latents, binary mask)."""
+        b = c.shape[0]
+        mask_b = (np.asarray(mask) >= 0.5).astype(np.float32)
+        masked = np.asarray(init_image) * (1.0 - mask_b[..., None])
+        masked_lat = encode_to_latent(self.bundle.vae, self._image(masked))
+        h8, w8 = masked_lat.shape[1:3]
+        mask_lat = resize(torch.as_tensor(mask_b, device=self.device)
+                          [None, :, :, None], (h8, w8), "nearest")
+        extra = torch.cat([mask_lat.float(), masked_lat.float()], dim=-1)
+        extra = extra.expand((b,) + extra.shape[1:])
+        x = noise.initial((b, h8, w8, self.bundle.unet.cfg.out_channels)) * \
+            self._sigma0(opts)
+        lat = self._sample(opts, x, c, uc, noise, opts.sampling_steps,
+                           extra=extra, status_cb=status_cb)
+        return lat, mask_b
 
     def generate(
         self,
@@ -133,14 +270,28 @@ class SD15Pipeline:
         status_cb: StatusCb = _noop_status,
         result_cb: Optional[Callable[[np.ndarray, Dict[str, Any]], None]] = None,
         noise: Optional[NoiseFactory] = None,
+        init_image: Optional[np.ndarray] = None,
+        mask_image: Optional[np.ndarray] = None,
     ) -> List[Tuple[np.ndarray, Dict[str, Any]]]:
         """Run the job: n_iter batches x n_samples images.
 
         Returns [(image_01 (H, W, 3) float, generation_parameters dict)].
         `noise(seed, device)` builds the noise source of the batch whose
         first image has `seed`; by default a torch.Generator seeded with it.
+        img2img takes `init_image` ((H, W, 3) in [-1, 1]); inpainting also
+        `mask_image` ((H, W) in [0, 1], 1 where to inpaint).
         """
         check_supported(opts)
+        mode = opts.mode
+        if (mode == MODE_INPAINTING) != self.bundle.inpaint:
+            raise ValueError(f"mode {mode!r} on a bundle with the "
+                             f"{'9' if self.bundle.inpaint else '4'}-channel "
+                             "UNet: inpainting needs the inpaint UNet, the "
+                             "other modes the plain one")
+        if mode != MODE_TEXT_TO_IMAGE and init_image is None:
+            raise ValueError(f"mode {mode!r} needs init_img")
+        if mode == MODE_INPAINTING and mask_image is None:
+            raise ValueError("inpainting needs mask_img")
         noise = noise or GeneratorNoise
         base_seed = resolve_seed(opts.seed)
         results = []
@@ -150,14 +301,25 @@ class SD15Pipeline:
                 b = opts.n_samples
                 status_cb(f"batch {it + 1}/{opts.n_iter}: encoding prompt")
                 c, uc = self._conditioning(opts, b)
+                src = noise(base_seed + img_index, self.device)
                 t0 = time.perf_counter()
-                lat = self.txt2img_latents(
-                    opts, c, uc, noise(base_seed + img_index, self.device),
-                    status_cb)
+                mask_b = None
+                if mode == MODE_TEXT_TO_IMAGE:
+                    lat = self.txt2img_latents(opts, c, uc, src, status_cb)
+                elif mode == MODE_IMAGE_TO_IMAGE:
+                    lat = self.img2img_latents(opts, init_image, c, uc, src,
+                                               status_cb)
+                else:
+                    lat, mask_b = self.inpaint_latents(
+                        opts, init_image, mask_image, c, uc, src, status_cb)
                 status_cb("decoding")
-                imgs = decode_from_latent(self.bundle.vae,
-                                          lat.to(torch.bfloat16))
-                imgs = device_to_img01(imgs)
+                imgs = device_to_img01(decode_from_latent(
+                    self.bundle.vae, lat.to(torch.bfloat16)))
+                if mask_b is not None:
+                    # the inpainted region over the original
+                    init01 = (np.asarray(init_image, np.float32) + 1.0) / 2.0
+                    m = mask_b[None, :, :, None]
+                    imgs = imgs * m + init01[None] * (1.0 - m)
                 logger.info("sampling+decode took %.2fs",
                             time.perf_counter() - t0)
                 for i in range(b):
@@ -175,12 +337,16 @@ def build_sd15_bundle(device=None, dtype: torch.dtype = torch.bfloat16,
                       seed: int = 0,
                       unet_cfg: Optional[UNetConfig] = None,
                       vae_cfg: Optional[VAEConfig] = None,
-                      clip_cfg: Optional[CLIPTextConfig] = None) -> SD15Bundle:
+                      clip_cfg: Optional[CLIPTextConfig] = None,
+                      inpaint: bool = False) -> SD15Bundle:
     """An SD1.5 bundle with seeded random weights, built on `device` in
-    `dtype` (default: the full SD1.5 configs). The port has no checkpoint
-    loader yet."""
+    `dtype` (default: the full SD1.5 configs); `inpaint` gives the UNet
+    the inpainting checkpoints' 9 input channels. The port has no
+    checkpoint loader yet."""
     device = resolve_device(device)
     unet_cfg = unet_cfg or sd15_unet_config(dtype=dtype)
+    if inpaint:
+        unet_cfg = dataclasses.replace(unet_cfg, in_channels=9)
     vae_cfg = vae_cfg or VAEConfig(dtype=dtype)
     clip_cfg = clip_cfg or CLIPTextConfig(dtype=dtype)
     fork = [device] if device.type == "cuda" else []

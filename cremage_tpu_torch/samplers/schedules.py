@@ -1,5 +1,5 @@
 """Sigma schedules for the port (numpy copy of the parts of
-cremage_tpu/samplers/schedules.py the SD1.5 txt2img path uses).
+cremage_tpu/samplers/schedules.py the SD1.5 pipeline uses).
 
 All schedule math is float64 on the host (numpy); schedules are tiny
 (<= 1001 elements), so there is no reason to compute them on the device.
@@ -8,6 +8,8 @@ All schedule math is float64 on the host (numpy); schedules are tiny
   (CompVis convention).
 - k-diffusion discrete schedule: sigma_t = sqrt((1-acp_t)/acp_t),
   `get_sigmas(n)` linspace over t then interp in log-sigma, append 0.
+- Karras (rho = 7) sigmas over the model's [sigma_min, sigma_max] for the
+  DPM family of the sampler menu; img2img keeps the schedule's tail.
 """
 from __future__ import annotations
 
@@ -60,6 +62,19 @@ class DiscreteSchedule:
         self.sigmas = np.asarray(sigmas, dtype=np.float64)  # ascending, len T
         self.log_sigmas = np.log(self.sigmas)
 
+    @property
+    def sigma_min(self) -> float:
+        return float(self.sigmas[0])
+
+    @property
+    def sigma_max(self) -> float:
+        return float(self.sigmas[-1])
+
+    @property
+    def alphas_cumprod(self) -> np.ndarray:
+        """The DDPM table back from the sigmas: acp = 1 / (1 + sigma^2)."""
+        return 1.0 / (1.0 + self.sigmas**2)
+
     def t_to_sigma(self, t: np.ndarray) -> np.ndarray:
         t = np.asarray(t, dtype=np.float64)
         low_idx = np.floor(t).astype(np.int64)
@@ -73,6 +88,22 @@ class DiscreteSchedule:
         t_max = len(self.sigmas) - 1
         t = np.linspace(t_max, 0, n, dtype=np.float64)
         return append_zero(self.t_to_sigma(t))
+
+
+def get_sigmas_karras(n: int, sigma_min: float, sigma_max: float,
+                      rho: float = 7.0) -> np.ndarray:
+    """Karras et al. (2022) noise levels, descending, with trailing 0."""
+    ramp = np.linspace(0, 1, n, dtype=np.float64)
+    min_inv_rho = sigma_min ** (1 / rho)
+    max_inv_rho = sigma_max ** (1 / rho)
+    return append_zero((max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho)
+
+
+def truncate_for_img2img(sigmas: np.ndarray, t_enc: int) -> np.ndarray:
+    """The last t_enc + 1 sigmas: partial denoising from step n - t_enc."""
+    if not 1 <= t_enc < len(sigmas):
+        raise ValueError(f"t_enc {t_enc} outside [1, {len(sigmas) - 1}]")
+    return sigmas[-(t_enc + 1):]
 
 
 def default_sd_schedule() -> DiscreteSchedule:

@@ -33,10 +33,11 @@ from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.clip import hidden_state_for_clip_skip
 from cremage_tpu_torch.models.unet import UNetConfig, UNetModel
 from cremage_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-from cremage_tpu_torch.models.vae import decode_from_latent
+from cremage_tpu_torch.models.vae import decode_from_latent, encode_to_latent
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.prompt.parser import compute_prompt_score
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
+from tests.test_torch_pipeline import jax_params
 
 torch.set_num_threads(2)
 
@@ -63,8 +64,7 @@ def nchw(x):
 
 def clip_pair(seed=2):
     j = JCLIP(JCLIPConfig(**CLIP_KW, dtype=jnp.float32))
-    p = perturbed(jax.jit(j.init)(jax.random.key(seed),
-                                  jnp.zeros((1, 77), jnp.int32)), seed)
+    p = jax_params(j, seed, jnp.zeros((1, 77), jnp.int32))
     t = convert.load_clip(CLIPTextModel(CLIPTextConfig(**CLIP_KW,
                                                        dtype=torch.float32)),
                           p["params"])
@@ -184,9 +184,8 @@ def test_text_encoder_filler_follows_clip_skip():
 @functools.lru_cache(maxsize=1)
 def unet_params():
     j = JUNet(JUNetConfig(**UNET_KW, dtype=jnp.float32))
-    return j, perturbed(jax.jit(j.init)(
-        jax.random.key(0), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
-        jnp.zeros((1, 77, HID))), 5)
+    return j, jax_params(j, 5, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,)),
+                         jnp.zeros((1, 77, HID)))
 
 
 def test_unet_matches_jax():
@@ -209,9 +208,8 @@ def test_unet_matches_jax():
 def test_vae_decoder_matches_jax():
     cfg = JVAEConfig(**VAE_KW, dtype=jnp.float32)
     j = JVAE(cfg)
-    p = perturbed(jax.jit(j.init)(jax.random.key(1),
-                                  jnp.zeros((1, 64, 64, 3))), 7)
-    t = convert.load_vae_decoder(
+    p = jax_params(j, 7, jnp.zeros((1, 64, 64, 3)))
+    t = convert.load_vae(
         AutoencoderKL(VAEConfig(**VAE_KW, dtype=torch.float32)),
         p["params"]).eval()
     z = np.random.RandomState(8).randn(2, 8, 8, 4).astype(np.float32) * 0.2
@@ -250,7 +248,8 @@ def test_set_compute_dtype_keeps_norms_float32():
 
 def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     """The CUDA kernels refuse strided views, which the CPU plain versions
-    would accept: check every K1/K2 call of the UNet and VAE here."""
+    would accept: check every K1/K2 call of the UNet and of the VAE's
+    encoder and decoder here."""
     from cremage_tpu_torch.models import unet as U
     from cremage_tpu_torch.models import vae as V
     from cremage_tpu_torch.ops import attention as A
@@ -278,6 +277,8 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
         unet(torch.randn(2, 4, 8, 8), torch.tensor([1.0, 2.0]),
              torch.randn(2, 77, HID))
         decode_from_latent(vae, torch.randn(1, 8, 8, 4))
+        encode_to_latent(vae, torch.rand(1, 64, 64, 3) * 2 - 1,
+                         lambda shape: torch.randn(shape))
     count = lambda m, kind: sum(isinstance(x, kind) for x in m.modules())
-    assert calls["attn"] == count(unet, U.CrossAttention) + 1 == 9
+    assert calls["attn"] == count(unet, U.CrossAttention) + 2 == 10
     assert calls["gn"] == count(unet, L.GroupNorm) + count(vae, L.GroupNorm)

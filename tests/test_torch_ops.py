@@ -95,9 +95,18 @@ def test_flash_kernel_input_checks():
 MAIN_PATH_NQ_NK_D = [(4096, 4096, 40), (4096, 77, 40), (1024, 1024, 80),
                      (1024, 77, 80), (256, 256, 160), (256, 77, 160),
                      (64, 64, 160), (64, 77, 160), (4096, 4096, 512)]
+# the new paths' shapes: the VAE encoder at 512^2 is (4096, 4096, 512) above;
+# the hires fix's UNet and VAE at 96^2 and 128^2 latents (x1.5, x2)
+HIRES_NQ_NK_D = [(9216, 9216, 40), (9216, 77, 40), (2304, 2304, 80),
+                 (2304, 77, 80), (576, 576, 160), (576, 77, 160),
+                 (144, 144, 160), (144, 77, 160), (9216, 9216, 512),
+                 (16384, 16384, 40), (16384, 77, 40), (4096, 4096, 80),
+                 (4096, 77, 80), (1024, 1024, 160), (1024, 77, 160),
+                 (16384, 16384, 512)]
+ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D
 
 
-@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+@pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
 def test_flash_plan_fits_shared_memory(nq, nk, d):
     plan = plan_flash(d, nq, nk)
     assert plan.smem_bytes <= SMEM_LIMIT
@@ -107,7 +116,7 @@ def test_flash_plan_fits_shared_memory(nq, nk, d):
     assert plan.smem_bytes >= tiles * plan.dp * 2   # q and every K/V stage
 
 
-@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+@pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
 def test_flash_plan_tma_boxes(nq, nk, d):
     plan = plan_flash(d, nq, nk)
     for box in (plan.q_box, plan.kv_box, plan.o_box):
@@ -119,7 +128,7 @@ def test_flash_plan_tma_boxes(nq, nk, d):
     assert plan.q_blocks * plan.bq >= nq > (plan.q_blocks - 1) * plan.bq
 
 
-@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+@pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
 def test_flash_plan_key_tile(nq, nk, d):
     plan = plan_flash(d, nq, nk)
     assert plan.bk % 8 == 0 and plan.bk <= 256   # a wgmma N
@@ -128,7 +137,7 @@ def test_flash_plan_key_tile(nq, nk, d):
         assert plan.bk >= nk
 
 
-@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D)
+@pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
 def test_flash_plan_output_split_covers_d_once(nq, nk, d):
     plan = plan_flash(d, nq, nk)
     cols = [c for lo, hi in plan.out_cols for c in range(lo, hi)]
@@ -138,7 +147,7 @@ def test_flash_plan_output_split_covers_d_once(nq, nk, d):
     assert all((hi - lo) // 2 <= 128 for lo, hi in plan.out_cols)
 
 
-@pytest.mark.parametrize("nq,nk,d", MAIN_PATH_NQ_NK_D + [(300, 4096, 40),
+@pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D + [(300, 4096, 40),
                                                          (100, 130, 80),
                                                          (64, 64, 80)])
 def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
@@ -241,6 +250,14 @@ MAIN_PATH_GN = [(8, 320, 64, 64), (8, 640, 64, 64), (8, 960, 64, 64),
                 (8, 1280, 8, 8), (8, 2560, 8, 8), (4, 512, 64, 64),
                 (4, 512, 128, 128), (4, 512, 256, 256), (4, 256, 256, 256),
                 (4, 256, 512, 512), (4, 128, 512, 512)]
+# the new paths: the VAE encoder at batch 1 (512^2 and 1024^2), the hires
+# decoder at 768^2 (batch 2) and 1024^2 (batch 1): slabs of 128 KB-16 MB
+NEW_PATH_GN = [(1, 128, 512, 512), (1, 128, 256, 256), (1, 256, 256, 256),
+               (1, 256, 128, 128), (1, 512, 128, 128), (1, 512, 64, 64),
+               (1, 128, 1024, 1024), (1, 256, 512, 512), (1, 512, 256, 256),
+               (2, 512, 96, 96), (2, 512, 192, 192), (2, 512, 384, 384),
+               (2, 256, 384, 384), (2, 256, 768, 768), (2, 128, 768, 768),
+               (1, 512, 512, 512), (1, 256, 1024, 1024)]
 # edge cases: H*W = 8; a slab not divisible by 8 * k (a short last piece);
 # N * G = 65535, the grid's y limit
 EDGE_GN = [(2, 64, 1, 8), (2, 96, 61, 136), (65535, 1, 1, 64)]
@@ -250,7 +267,7 @@ def _gn_plan(n, c, h, w, **kw):
     return plan_groupnorm(n, c, h * w, 32 if c % 32 == 0 else 1, **kw)
 
 
-@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + EDGE_GN)
+@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + NEW_PATH_GN + EDGE_GN)
 def test_groupnorm_plan_covers_slab_once(n, c, h, w):
     plan = _gn_plan(n, c, h, w)
     pieces = plan.pieces()
@@ -266,7 +283,7 @@ def test_groupnorm_plan_covers_slab_once(n, c, h, w):
         assert plan.sub % 8 == 0 and 1 <= -(-plan.piece // plan.sub) <= GN.MAX_SUB
 
 
-@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + EDGE_GN)
+@pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN + NEW_PATH_GN + EDGE_GN)
 def test_groupnorm_plan_fits_a_cta(n, c, h, w):
     plan = _gn_plan(n, c, h, w)
     assert plan.cluster in GN.CLUSTER_SIZES
@@ -287,6 +304,19 @@ def test_groupnorm_plan_route(n, c, h, w):
     slab, which no 16-CTA cluster holds."""
     want = "two_pass" if (n, c, h, w) == (4, 256, 512, 512) else "cluster"
     assert _gn_plan(n, c, h, w).route == want
+
+
+@pytest.mark.parametrize("n,c,h,w", NEW_PATH_GN)
+def test_groupnorm_new_path_route(n, c, h, w):
+    """Slabs up to 16 CTAs of 225 KB (3.6 MB; the 512^2 encoder's largest
+    is 2 MB) stay one pass in a cluster; the hires decoder's and the 1024^2
+    encoder's 4-16 MB slabs take the two-pass route, at most 1024 chunks of
+    16K elements."""
+    plan = _gn_plan(n, c, h, w)
+    one_pass = 2 * plan.slab <= 16 * 225 * 1024
+    assert plan.route == ("cluster" if one_pass else "two_pass")
+    if plan.route == "two_pass":
+        assert plan.ctas <= 1024 and plan.piece <= 16384
 
 
 def test_groupnorm_plan_matches_kernel_constants():
@@ -370,7 +400,12 @@ def cuda():
                                          (2, 100, 130, 4, 80),
                                          (1, 300, 4096, 2, 40),
                                          (8, 64, 64, 8, 160),
-                                         (1, 1024, 1024, 1, 512)])
+                                         (1, 1024, 1024, 1, 512),
+                                         # the hires fix's longest loops: 512
+                                         # K/V tiles an item at d = 512, and
+                                         # 9216 tokens at d = 40
+                                         (1, 16384, 16384, 1, 512),
+                                         (2, 9216, 9216, 8, 40)])
 def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                for a in _qkv(d, b, nq, nk, h, d))
@@ -399,6 +434,10 @@ GN_CUDA_CASES = [
     (1, 640, 64, 64, 1e-5, True, 20.0, 2),
     (8, 1280, 8, 8, 1e-6, False, 20.0, 1),
     (1, 256, 512, 512, 1e-5, False, 20.0, "two_pass"),
+    # the new paths: the VAE encoder's N = 1 slabs (a partly filled card)
+    # and the 1024^2 decoder's 16 MB slab
+    (1, 512, 64, 64, 1e-6, True, 0.0, 2),
+    (1, 256, 1024, 1024, 1e-6, True, 0.0, "two_pass"),
 ]
 
 

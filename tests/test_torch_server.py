@@ -4,9 +4,11 @@
 import base64
 import io
 import json
+import struct
 import time
 import urllib.error
 import urllib.request
+import zlib
 
 import numpy as np
 import pytest
@@ -14,9 +16,12 @@ import torch
 from PIL import Image
 
 from cremage_tpu.app.worker import make_result_message as j_result_message
-from cremage_tpu_torch.app.server import ApiServer, register_sd15
+from cremage_tpu_torch.app.server import ApiServer, load_image, register_sd15
 from cremage_tpu_torch.app.worker import EngineWorker, make_result_message
-from cremage_tpu_torch.io.png import GENERATION_DATA_KEY, decode_png
+from cremage_tpu_torch.core.config import GenerationOptions
+from cremage_tpu_torch.io.png import (
+    GENERATION_DATA_KEY, decode_png, image_to_uint8,
+)
 from cremage_tpu_torch.models.clip import CLIPTextConfig
 from cremage_tpu_torch.models.unet import UNetConfig
 from cremage_tpu_torch.models.vae import VAEConfig
@@ -28,7 +33,7 @@ F32 = torch.float32
 
 
 @pytest.fixture(scope="module")
-def server():
+def pipe():
     bundle = build_sd15_bundle(
         "cpu", dtype=F32, seed=0,
         unet_cfg=UNetConfig(model_channels=32, num_res_blocks=1,
@@ -39,9 +44,15 @@ def server():
                           dtype=F32),
         clip_cfg=CLIPTextConfig(hidden_size=32, num_layers=2, num_heads=4,
                                 intermediate_size=64, dtype=F32))
+    return SD15Pipeline(bundle, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def server(pipe, tmp_path_factory):
     worker = EngineWorker()
-    register_sd15(worker, SD15Pipeline(bundle, device="cpu"))
-    srv = ApiServer(worker=worker, port=0)
+    register_sd15(worker, pipe)          # no inpainting bundle
+    srv = ApiServer(worker=worker, port=0,
+                    upload_dir=str(tmp_path_factory.mktemp("uploads")))
     srv.start()
     yield f"http://127.0.0.1:{srv.port}"
     srv.stop()
@@ -97,7 +108,7 @@ def test_generate_round_trip(server):
 def test_unsupported_job_reports_failure(server):
     _call(server + "/v1/generate", {"generator_model_type": "SD 1.5",
                                     "prompt": "x", "H": 64, "W": 64,
-                                    "sampler": "DDIM", "safety_check": False})
+                                    "sampler": "PLMS", "safety_check": False})
     done = _drain(server, 1)[-1]["job_done"]
     assert not done["ok"] and "NotImplementedError" in done["error"]
 
@@ -116,3 +127,95 @@ def test_result_message_keys_match_jax():
     assert ours["generation_parameters"] == ref["generation_parameters"]
     np.testing.assert_array_equal(decode_png(ours["image"])[0],
                                   np.asarray(Image.open(io.BytesIO(ref["image"]))))
+
+
+def _png_b64(arr, mode):
+    buf = io.BytesIO()
+    Image.fromarray(arr, mode).save(buf, "PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def test_meta_lists_the_menu(server):
+    meta = _call(server + "/v1/meta")
+    assert meta["samplers"] == ["DDIM", "DPM++ 2M", "DPM++ 2M SDE",
+                                "DPM++ 2S A", "DPM++ 3M SDE", "DPM++ SDE",
+                                "DPM2", "DPM2 A", "Euler", "Euler A", "Heun",
+                                "LMS"]
+    assert meta["modes"] == ["text_to_image", "image_to_image", "inpainting"]
+    assert meta["samplers_by_type"]["SD 1.5"] == meta["samplers"]
+
+
+def test_upload_then_img2img_matches_the_pipeline(server, pipe):
+    """An RGBA PNG staged by /v1/upload is read as PIL's convert("RGB")
+    reads it (the JAX backend's _load_image), and the job's images are the
+    pipeline's own on that image."""
+    rng = np.random.RandomState(3)
+    rgba = rng.randint(0, 256, (64, 64, 4)).astype(np.uint8)
+    path = _call(server + "/v1/upload", {"image": _png_b64(rgba, "RGBA")})["path"]
+    staged = np.asarray(Image.open(path))
+    np.testing.assert_array_equal(staged, rgba[..., :3])
+    params = {"prompt": "a cat", "H": 64, "W": 64, "sampling_steps": 2,
+              "sampler": "DPM++ 2M", "strength": 0.5, "seed": 3,
+              "n_samples": 1, "safety_check": False, "init_img": path}
+    _call(server + "/v1/generate", {"generator_model_type": "SD 1.5",
+                                    "mode": "image_to_image",
+                                    "parameters": params})
+    msgs = _drain(server, 1)
+    assert msgs[-1] == {"job_done": {"ok": True, "error": None}}
+    served = [decode_png(base64.b64decode(m["image_b64"]))[0] for m in msgs
+              if isinstance(m, dict) and "image_b64" in m]
+    init = np.asarray(Image.open(path).convert("RGB"), np.float32) / 255 * 2 - 1
+    direct = pipe.generate(GenerationOptions(mode="image_to_image", **params),
+                           init_image=init)
+    assert len(served) == len(direct) == 1
+    np.testing.assert_array_equal(served[0], image_to_uint8(direct[0][0]))
+
+
+def test_upload_rejects_what_it_cannot_read(server):
+    for payload in ({"image": base64.b64encode(b"GIF89a...").decode()},
+                    {"image": "%%%"}, {"img": "x"}):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _call(server + "/v1/upload", payload)
+        assert e.value.code == 400
+
+
+def test_upload_refuses_a_decompression_bomb(server):
+    """A PNG whose header claims 60000^2 RGBA pixels (a few KB of zeros
+    that would inflate to 14 GB) is refused from its header, before its
+    data is inflated."""
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    z = zlib.compressobj()
+    idat = z.compress(bytes(1 << 24)) + z.flush()
+    bomb = (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", 60000, 60000, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", idat) + chunk(b"IEND", b""))
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _call(server + "/v1/upload", {"image": base64.b64encode(bomb).decode()})
+    assert e.value.code == 400
+    assert "exceeds 4096" in json.loads(e.value.read())["error"]
+
+
+def test_inpainting_without_the_inpaint_bundle_fails_clearly(server):
+    _call(server + "/v1/generate", {
+        "generator_model_type": "SD 1.5", "mode": "inpainting",
+        "prompt": "x", "H": 64, "W": 64, "sampler": "DDIM",
+        "safety_check": False})
+    done = _drain(server, 1)[-1]["job_done"]
+    assert not done["ok"] and "--inpaint" in done["error"]
+
+
+@pytest.mark.parametrize("key,mode", [("init_img", "RGB"), ("mask_img", "L")])
+def test_load_image_reads_as_the_jax_backend(tmp_path, key, mode):
+    from cremage_tpu.app.backends import _load_image as j_load_image
+
+    rng = np.random.RandomState(4)
+    path = str(tmp_path / "in.png")
+    Image.fromarray(rng.randint(0, 256, (16, 24, 3)).astype(np.uint8)).save(path)
+    got = load_image({key: path}, key)
+    want = j_load_image({key: path}, key)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    assert load_image({key: str(tmp_path / "missing.png")}, key) is None
