@@ -40,12 +40,33 @@ is nonzero and no final line is printed:
 9. samplers: each of the 12 menu samplers runs SAMPLER_STEPS steps
    through the full-width UNet at 64^2 latents, batch 1 with CFG; its
    launch counts must equal its evaluations times the UNet's calls;
-10. new paths' shapes: hooks record the shape of every K1 and K2 call of
-   the checked run of each modes request and of the samplers phase (the
-   recorded calls must add up to the launch counts), and the same checks
-   as 4 and 5 run at every shape the main path's rows do not hold; each
-   row lists the paths that run its shape with their calls per request;
-11. the kernels line (per-request totals over the main path's shapes, as
+10. sd15_full: SD1.5 as users run it, at full width and depth. Seeded
+   random fp16 files in the published key layouts go under build/: a
+   single-file checkpoint (every model key of the reference's key list,
+   the schedule buffers, CLIP's position_ids), a standalone VAE, a kohya
+   LoRA over all 264 modules of the reference's LoRA list (rank 4), a TI
+   embedding (.pt), a ControlNet (control_model.*), a safety checker under
+   HF names, wildcards and a config.yaml naming them. The server is built
+   by main()'s --config route (build_server) and serves the product's job
+   (512^2, Euler A, 20 steps, CFG 7.5, batch 4) with the safety check at
+   its default (on, the classifier loaded from SAFETY_CHECKER_PATH), the
+   watermark on, the LoRA, a TI tag and a wildcard in the prompt, and the
+   ControlNet on an uploaded control image; sent twice (the first run
+   loads the files). Checks: every weight on the card equals its file's
+   (per tensor; checksums per group reported), the LoRA moved exactly its
+   264 modules, each by the expected delta within one bf16 ulp; each PNG's
+   watermark decodes; each image's metadata carries its safety flag; the
+   K1 / K2 launches equal the counts derived from the module tree (the
+   ControlNet's calls in each of the 20 evaluations at batch 8, the safety
+   checker's 24 K1 calls per batch); a deny-listed prompt is refused;
+11. new paths' shapes: hooks record the shape of every K1 and K2 call of
+   the checked run of each modes request, of the samplers phase and of
+   sd15_full (the recorded calls must add up to the launch counts), and
+   the same checks as 4 and 5 run at every shape the main path's rows do
+   not hold (the safety checker's d = 64 at batch 4 and 1 among them);
+   each row lists the paths that run its shape with their calls per
+   request;
+12. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -59,10 +80,13 @@ import contextlib
 import dataclasses
 import faulthandler
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
@@ -78,9 +102,17 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # 1 instead of using up the call. The K1 limit starts with the shapes
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
-                serving=300, modes=300, samplers=240, new_shapes=480)
+                serving=300, modes=300, samplers=240, sd15_full=480,
+                new_shapes=480)
 PROMPT = "a photograph of an astronaut riding a horse"
 NEGATIVE = "blurry, low quality"
+# sd15_full: a wildcard and a TI tag in the prompt, a rank-4 LoRA at 0.8
+FULL_PROMPT = ("a photograph of an astronaut riding a __color__ horse, "
+               "<embedding:astro.pt>")
+LORA_RANK, LORA_ALPHA, LORA_WEIGHT = 4, 2.0, 0.8
+DENY_TERM = "forbidden words"
+WATERMARK = b"Cremage"
+REPO = Path(__file__).resolve().parent
 
 
 def watchdog(phase: str) -> None:
@@ -176,10 +208,12 @@ def ptxas_summary(log: str) -> dict:
 
 
 @contextlib.contextmanager
-def recording(*bundles):
-    """While open, count the K1 and K2 calls of the bundles' UNets and VAEs
+def recording(*models):
+    """While open, count the K1 and K2 calls of the models (bundles: their
+    UNets, VAEs and ControlNets; or modules, such as the safety checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
+    from cremage_tpu_torch.models.clip import CLIPAttention
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
@@ -202,15 +236,26 @@ def recording(*bundles):
     def on_gn(mod, args):
         add(gn, tuple(args[0].shape) + (mod.eps, mod.fuse_silu))
 
+    def on_clip(mod, args):        # unmasked (the safety checker's): K1
+        x, mask = args
+        if mask is None:
+            b, n, c = x.shape
+            add(attn, (b, n, n, mod.heads, c // mod.heads))
+
     hooks = []
-    for bundle in bundles:
-        for m in list(bundle.unet.modules()) + list(bundle.vae.modules()):
+    for model in models:
+        parts = ([model.unet, model.vae, model.controlnet]
+                 if hasattr(model, "unet") else [model])
+        for m in (m for part in parts if part is not None
+                  for m in part.modules()):
             if isinstance(m, CrossAttention):
                 hooks.append(m.register_forward_pre_hook(on_cross))
             elif isinstance(m, AttnBlock):
                 hooks.append(m.register_forward_pre_hook(on_vae_attn))
             elif isinstance(m, GroupNorm):
                 hooks.append(m.register_forward_pre_hook(on_gn))
+            elif isinstance(m, CLIPAttention):
+                hooks.append(m.register_forward_pre_hook(on_clip))
     try:
         yield attn, gn, weight
     finally:
@@ -788,6 +833,352 @@ def samplers(bundle, dev, card, res=RES, steps=SAMPLER_STEPS):
     return rows, (attn, gn)
 
 
+def keylist(name: str):
+    """The keys of a reference key list (tests/fixtures/keylists)."""
+    text = (REPO / "tests" / "fixtures" / "keylists" / name).read_text()
+    return [ln.strip() for ln in text.splitlines()
+            if ln.strip() and not ln.startswith("#")]
+
+
+def seeded_state(cls, cfg, dev, seed):
+    """`cls(cfg)`'s state dict with seeded random float32 weights on `dev`:
+    the module's own init, each 1-D tensor (norm affines, biases) moved by
+    0.02 N(0, 1) so that no tensor is trivial."""
+    import torch
+
+    fork = [dev] if torch.device(dev).type == "cuda" else []
+    with torch.random.fork_rng(devices=fork), torch.device(dev):
+        torch.manual_seed(seed)
+        sd = cls(cfg).state_dict()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    for v in sd.values():
+        if v.ndim == 1 and v.is_floating_point():
+            v.add_(0.02 * torch.randn(v.shape, device=dev, generator=g))
+    return sd
+
+
+def lora_modules(unet_cfg):
+    """The kohya modules of the reference's SD1.5 LoRA list -> (model,
+    module name) of the port."""
+    from cremage_tpu_torch.io.lora import group_lora_modules, kohya_module_to_torch_name
+
+    mods = group_lora_modules(dict.fromkeys(keylist(
+        "reference_sd15_lora_weight_list.txt")))
+    return {m: kohya_module_to_torch_name(m, unet_cfg) for m in sorted(mods)}
+
+
+def write_full_files(root: Path, dev, cfgs: dict, full_width: bool = True):
+    """Seeded random fp16 files of an SD1.5 deployment under `root`, and
+    what each holds: -> (paths, truth), truth[group] = {key: fp16 CPU
+    tensor} as the group's model names it (the LoRA's as its file does)."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.models.clip import CLIPTextModel
+    from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
+    from cremage_tpu_torch.models.safety_checker import StableDiffusionSafetyChecker
+    from cremage_tpu_torch.models.unet import UNetModel
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    root.mkdir(parents=True, exist_ok=True)
+
+    def host(sd):
+        return {k: v.half().cpu() for k, v in sd.items()}
+
+    truth = {"unet": host(seeded_state(UNetModel, cfgs["unet"], dev, 10)),
+             "clip": host(seeded_state(CLIPTextModel, cfgs["clip"], dev, 11)),
+             "vae": host(seeded_state(AutoencoderKL, cfgs["vae"], dev, 12)),
+             "controlnet": host(seeded_state(ControlNet, cfgs["controlnet"],
+                                             dev, 13)),
+             "safety": host(seeded_state(StableDiffusionSafetyChecker,
+                                         cfgs["safety"], dev, 14))}
+    # no concept scores above their thresholds (a cosine is at most 1):
+    # no image is swapped for the black placeholder, so every watermark
+    # can be decoded
+    truth["safety"]["concept_embeds_weights"].fill_(1.5)
+    paths = {k: root / n for k, n in (
+        ("ckpt", "sd15.safetensors"), ("vae", "vae.safetensors"),
+        ("lora", "lora.safetensors"), ("controlnet", "control.safetensors"),
+        ("safety", "safety_checker.safetensors"), ("embeddings", "embeddings"),
+        ("wildcards", "wildcards"), ("config", "config.yaml"))}
+    ckpt = {}
+    # the checkpoint's own VAE differs from the standalone one the job names
+    for prefix, sd in ((CK.PREFIX_UNET, truth["unet"]),
+                       (CK.PREFIX_VAE, host(seeded_state(
+                           AutoencoderKL, cfgs["vae"], dev, 15))),
+                       (CK.PREFIX_CLIP_SD15, truth["clip"])):
+        ckpt.update({prefix + k: v for k, v in sd.items()})
+    if full_width:      # every model key of a real checkpoint, no other
+        ref = [k for k in keylist("reference_sd15_weight_list.txt")
+               if "_lora_" not in k and k not in CK.SCHEDULE_KEYS]
+        if set(ref) != set(ckpt):
+            raise AssertionError("the port's modules do not name the "
+                                 "reference's checkpoint keys")
+        ckpt = {k: ckpt[k] for k in ref}
+    betas = torch.linspace(0.00085 ** 0.5, 0.012 ** 0.5, 1000,
+                           dtype=torch.float64) ** 2
+    ckpt["betas"] = betas.float()
+    ckpt["alphas_cumprod"] = torch.cumprod(1 - betas, 0).float()
+    ckpt[CK.PREFIX_CLIP_SD15 + CK.POSITION_IDS] = torch.arange(77)[None]
+    CK.save_safetensors(str(paths["ckpt"]), ckpt)
+    CK.save_safetensors(str(paths["vae"]), truth["vae"])
+    CK.save_safetensors(str(paths["controlnet"]),
+                        {PREFIX_CONTROLNET + k: v
+                         for k, v in truth["controlnet"].items()})
+    CK.save_safetensors(str(paths["safety"]), dict(
+        truth["safety"], **{"vision_model.vision_model." + CK.POSITION_IDS:
+                            torch.arange(257)[None]}))
+    del ckpt
+    with torch.device("meta"):
+        shapes = {"unet": UNetModel(cfgs["unet"]),
+                  "te": CLIPTextModel(cfgs["clip"])}
+    g = torch.Generator(device=dev).manual_seed(16)
+    lora = {}
+    for mod, dest in lora_modules(cfgs["unet"]).items():
+        if dest is None or dest[0] not in shapes:
+            continue
+        try:
+            w = shapes[dest[0]].get_submodule(dest[1]).weight
+        except AttributeError:       # not in a narrowed model
+            continue
+        tail = tuple(w.shape[2:])
+        lora[mod + ".lora_down.weight"] = 0.05 * torch.randn(
+            (LORA_RANK, w.shape[1]) + tail, device=dev, generator=g)
+        lora[mod + ".lora_up.weight"] = 0.05 * torch.randn(
+            (w.shape[0], LORA_RANK) + (1,) * len(tail), device=dev, generator=g)
+        lora[mod + ".alpha"] = torch.tensor(LORA_ALPHA)
+    truth["lora"] = host(lora)
+    CK.save_safetensors(str(paths["lora"]), truth["lora"])
+    paths["embeddings"].mkdir(exist_ok=True)
+    truth["ti"] = 0.02 * torch.randn(2, cfgs["clip"].hidden_size,
+                                     generator=torch.Generator().manual_seed(17))
+    torch.save({"string_to_param": {"*": truth["ti"]}, "name": "astro"},
+               paths["embeddings"] / "astro.pt")
+    paths["wildcards"].mkdir(exist_ok=True)
+    (paths["wildcards"] / "color.txt").write_text(
+        "# the horse's colour\nwhite\nsilver\n\nchestnut\n")
+
+    def q(v):
+        return "'" + str(v).replace("'", "''") + "'"
+    paths["config"].write_text("".join(f"{k}: {q(v)}\n" for k, v in (
+        ("ldm_model_path", root), ("ldm_model", paths["ckpt"].name),
+        ("embedding_path", paths["embeddings"]),
+        ("control_model_path", root), ("lora_model_path", root))))
+    return {k: str(v) for k, v in paths.items()}, truth
+
+
+def bf16_ulp(x):
+    """One bf16 ulp of each value of x (8 significant bits)."""
+    import torch
+
+    a = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_weights(bundle, safety_model, truth, unet_cfg):
+    """Every weight on the card against its file: equal where no LoRA
+    touched it, and each LoRA module's within one bf16 ulp of the merge
+    W + w * alpha / r * up @ down (float32) of the file's tensors.
+    -> a row of per-group checksums and counts; raises on a mismatch."""
+    import torch
+
+    dev = bundle.unet.time_embed[0].weight.device
+    lora_sd = truth["lora"]
+    targets = {}
+    for mod, dest in lora_modules(unet_cfg).items():
+        if mod + ".lora_up.weight" in lora_sd:
+            model, name = dest
+            targets[("unet" if model == "unet" else "clip", name + ".weight")] = mod
+    groups = {"unet": bundle.unet, "clip": bundle.text.model, "vae": bundle.vae,
+              "controlnet": bundle.controlnet, "safety": safety_model}
+    row = dict(phase="sd15_full_weights", groups={})
+    moved = 0
+    for group, model in groups.items():
+        card_sum = file_sum = 0.0
+        equal = lora = 0
+        for key, p in model.state_dict().items():
+            want = truth[group][key].to(dev, p.dtype)
+            mod = targets.get((group, key))
+            if mod is not None:
+                up, down = (lora_sd[f"{mod}.lora_{s}.weight"].to(dev).float()
+                            for s in ("up", "down"))
+                delta = (torch.einsum("orab,rihw->oihw", up, down)
+                         if up.ndim == 4 else up @ down)
+                want_m = (want.float() + delta * (LORA_WEIGHT * LORA_ALPHA
+                                                  / LORA_RANK)).to(p.dtype)
+                err = (p.float() - want_m.float()).abs()
+                if not bool((err <= bf16_ulp(want_m)).all()):
+                    raise AssertionError(f"LoRA {mod}: {group}.{key} is "
+                                         f"{float(err.max())} off the merge")
+                if torch.equal(p, want):
+                    raise AssertionError(f"LoRA {mod} left {key} unchanged")
+                want, lora = want_m, lora + 1
+            elif not torch.equal(p, want):
+                raise AssertionError(f"{group}.{key} differs from its file")
+            else:
+                equal += 1
+            card_sum += float(p.double().sum())
+            file_sum += float(want.double().sum())
+        row["groups"][group] = dict(tensors=equal + lora, equal=equal,
+                                    lora_merged=lora, card_checksum=card_sum,
+                                    file_checksum=file_sum)
+        moved += lora
+    row["lora_modules"] = moved
+    if moved != len(targets):
+        raise AssertionError(f"the LoRA moved {moved} of {len(targets)} modules")
+    return row
+
+
+def expect_refused(client, params, what):
+    """POST a job that must fail before it runs: -> its error."""
+    client.generate("text_to_image", params)
+    end = time.time() + 60
+    while time.time() < end:
+        for m in client.call("/v1/status")["messages"]:
+            if isinstance(m, dict) and "job_done" in m:
+                if m["job_done"]["ok"]:
+                    raise AssertionError(f"{what}: the job ran")
+                return m["job_done"]["error"]
+        time.sleep(0.02)
+    raise TimeoutError(what)
+
+
+def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
+              cfgs=None, full_width=True):
+    """The phase sd15_full (see the module docstring). -> (rows, {path:
+    (K1 shapes, K2 shapes)}, launches of the checked run)."""
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.io.png import encode_png
+    from cremage_tpu_torch.models.clip import CLIPAttention
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.unet import CrossAttention
+    from cremage_tpu_torch.services.watermark import decode_watermark
+
+    cfgs = cfgs or full_configs()
+    t0 = time.perf_counter()
+    paths, truth = write_full_files(root, dev, cfgs, full_width)
+    file_bytes = {k: os.path.getsize(v) for k, v in paths.items()
+                  if os.path.isfile(v)}
+    rows = [dict(phase="sd15_full_files", seconds=time.perf_counter() - t0,
+                 bytes=file_bytes, lora_modules=len(truth["lora"]) // 3)]
+    emit(rows[0])
+    old_env = os.environ.get("SAFETY_CHECKER_PATH")
+    os.environ["SAFETY_CHECKER_PATH"] = paths["safety"]
+    srv = build_server(["--config", paths["config"], "--port", "0",
+                        "--deny-term", DENY_TERM])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    try:
+        control = client.call("/v1/upload", {"image": base64.b64encode(
+            encode_png(test_image(res)[0])).decode()})["path"]
+        params = {"prompt": FULL_PROMPT, "negative_prompt": NEGATIVE,
+                  "H": res, "W": res, "sampling_steps": steps,
+                  "sampler": "Euler A", "scale": 7.5, "n_samples": batch,
+                  "n_iter": 1, "watermark": True,
+                  "vae_ckpt": paths["vae"], "lora_models": paths["lora"],
+                  "lora_weights": str(LORA_WEIGHT),
+                  "wildcards_path": paths["wildcards"],
+                  "control_net": paths["controlnet"],
+                  "control_image_path": control}
+        refused = expect_refused(client, dict(params, prompt=DENY_TERM),
+                                 "deny-listed prompt")
+        walls, shapes = [], {}
+        for run in range(2):        # the first run loads the files
+            reset_counts()
+            pipe = None
+            if run:
+                pipe = srv.worker._backends["SD 1.5"].resident.instance
+            with contextlib.ExitStack() as stack:
+                if pipe is not None:
+                    attn, gn, _ = stack.enter_context(recording(
+                        pipe.bundle, pipe.safety.classifier.model))
+                t1 = time.perf_counter()
+                client.generate("text_to_image", dict(params, seed=500 + run))
+                msgs = client.drain(1)
+                walls.append(time.perf_counter() - t1)
+            k1, k2 = read_counts()
+        shapes["sd15_full"] = (attn, gn)
+        bundle, safety = pipe.bundle, pipe.safety
+        images = served_images(msgs)
+        # the safety checker at batch 1: the (1, 257, 257, 16, 64) shape
+        imgs01 = np.stack([p.astype(np.float32) / 255 for p, _ in images])
+        with recording(safety.classifier.model) as (attn1, gn1, _):
+            _, flags1 = safety.check(imgs01[:1])
+        shapes["safety batch 1"] = (attn1, gn1)
+    finally:
+        srv.stop()
+        if old_env is None:
+            os.environ.pop("SAFETY_CHECKER_PATH", None)
+        else:
+            os.environ["SAFETY_CHECKER_PATH"] = old_env
+
+    weights = check_weights(bundle, safety.classifier.model, truth, cfgs["unet"])
+    emit(weights)
+    n_safety = count(safety.classifier.model, CLIPAttention)
+    want_k1, want_k2 = kernel_calls(bundle, steps, 0, 1)
+    want_k1 += steps * count(bundle.controlnet, CrossAttention) + n_safety
+    want_k2 += steps * count(bundle.controlnet, GroupNorm)
+    loads = dict(bundle.load_report["files"], **safety.classifier.load_report)
+    marks = [decode_watermark(p, len(WATERMARK)) for p, _ in images]
+    row = dict(phase="sd15_full", card=card, steps=steps, batch=batch,
+               seconds=walls[1], seconds_per_request=walls[1],
+               first_run_seconds=walls[0],
+               load={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9)
+                             / 1e9) for k, v in loads.items()},
+               images=[list(p.shape) for p, _ in images],
+               pixel_std=[float(np.std(p.astype(np.float32))) for p, _ in images],
+               watermarks=[m.decode("latin-1") for m in marks],
+               nsfw=[m.get("nsfw") for _, m in images],
+               prompts=[m["prompt"] for _, m in images],
+               safety_batch1_flags=flags1, refused=refused,
+               lora=bundle.load_report["loras"],
+               flash_attention_launches=k1, group_norm_silu_launches=k2,
+               expected_flash_attention=want_k1,
+               expected_group_norm_silu=want_k2,
+               safety_checker_k1_per_batch=n_safety,
+               recorded_calls=[sum(attn.values()), sum(gn.values())])
+    emit(row)
+    if len(images) != batch or any(p.shape != (res, res, 3) for p, _ in images):
+        raise AssertionError(f"sd15_full: images {row['images']}")
+    if min(row["pixel_std"]) <= 0.0:
+        raise AssertionError("sd15_full: a constant image")
+    if any(m != WATERMARK for m in marks):
+        raise AssertionError(f"sd15_full: watermarks decode to {marks}")
+    if any(not isinstance(f, bool) for f in row["nsfw"]) or \
+            flags1 != row["nsfw"][:1]:
+        raise AssertionError(f"sd15_full: safety flags {row['nsfw']}, "
+                             f"at batch 1 {flags1}")
+    if any("__" in p or "<embedding" not in p for p in row["prompts"]):
+        raise AssertionError(f"sd15_full: prompts {row['prompts']}")
+    if "Safety check" not in (refused or ""):
+        raise AssertionError(f"sd15_full: deny term not refused: {refused}")
+    if not (k1, k2) == (want_k1, want_k2) == tuple(row["recorded_calls"]):
+        raise AssertionError(f"sd15_full: kernel launches {(k1, k2)}, derived "
+                             f"{(want_k1, want_k2)}, recorded "
+                             f"{row['recorded_calls']} differ")
+    return rows + [weights, row], shapes, (k1, k2)
+
+
+def full_configs():
+    """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
+    UNet's encoder on 4 latent channels) and the CompVis safety checker,
+    in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.clip import CLIPTextConfig
+    from cremage_tpu_torch.models.safety_checker import SafetyCheckerConfig
+    from cremage_tpu_torch.models.unet import sd15_unet_config
+    from cremage_tpu_torch.models.vae import VAEConfig
+
+    unet = sd15_unet_config(dtype=torch.bfloat16)
+    return dict(unet=unet, clip=CLIPTextConfig(dtype=torch.bfloat16),
+                vae=VAEConfig(dtype=torch.bfloat16), controlnet=unet,
+                safety=SafetyCheckerConfig(dtype=torch.bfloat16))
+
+
 def kernel_entry(name, source, replaces, rows, launches, path_launches):
     """Per-request totals over the main path's shapes (each shape's time
     times its calls per request), as earlier slices report them; the other
@@ -878,6 +1269,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     watchdog("samplers")
     sampler_rows, paths["samplers"] = samplers(bundle, dev, card)
+    del bundle
+    torch.cuda.empty_cache()
+    watchdog("sd15_full")
+    full_root = REPO / "build" / "sd15_full"
+    try:
+        _, full_paths, full_launches = sd15_full(dev, card, full_root)
+    finally:
+        shutil.rmtree(full_root, ignore_errors=True)
+    paths.update(full_paths)
+    torch.cuda.empty_cache()
     watchdog("new_shapes")
     for path, (p_attn, p_gn) in paths.items():
         emit(dict(phase="shapes", path=path,
@@ -890,7 +1291,8 @@ def main() -> int:
 
     def by_phase(key):
         return {"modes": sum(r[key] for r in mode_rows),
-                "samplers": sum(r[key] for r in sampler_rows)}
+                "samplers": sum(r[key] for r in sampler_rows),
+                "sd15_full": full_launches[key.startswith("group")]}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

@@ -9,10 +9,14 @@ EngineWorker with the same JSON contract:
   POST /v1/upload     {"image": b64 PNG} -> {"path": staged file}, the path
                       a job's init_img / mask_img names
 
-Run `python -m cremage_tpu_torch.app.server --port N [--inpaint]` to serve
-an SD1.5 bundle on the GPU (with --inpaint also the 9-channel inpainting
-bundle, for mode "inpainting"). The port has no checkpoint loader yet, so
-the bundles' weights are random, made from --seed.
+Run `python -m cremage_tpu_torch.app.server --config config.yaml --port N`
+to serve SD1.5 on the GPU from the checkpoint files that the config (the
+JAX package's config.yaml: ldm_model_path / ldm_model, ldm_inpaint_model,
+embedding_path) and each job (ckpt, vae_ckpt, lora_models, control_net)
+name (app/backends.py); $SAFETY_CHECKER_PATH names the image safety
+checker's weights. `--deny-term` adds a term to the prompt gate's deny
+list. For smoke runs only, `--random-weights --seed N [--inpaint]` serves
+bundles of seeded random weights instead.
 """
 from __future__ import annotations
 
@@ -250,15 +254,20 @@ class ApiServer:
 
 
 def load_image(params: dict, key: str) -> Optional[np.ndarray]:
-    """The job's `key` image file as the JAX backend reads it: mask_img as
-    (H, W) grey in [0, 1], any other as (H, W, 3) RGB in [-1, 1]; None when
+    """The job's `key` image file: mask_img as (H, W) grey in [0, 1],
+    control_image_path as (H, W, 3) RGB in [0, 1] (the range the pipeline's
+    ControlNet hint takes; the JAX backend passes [-1, 1] there), any other
+    as (H, W, 3) RGB in [-1, 1], as the JAX backend reads them; None when
     the parameter is unset or names no file."""
     p = params.get(key)
     if not p or not os.path.exists(p):
         return None
     if key == "mask_img":
         return read_png(p, "L", MAX_EDGE).astype(np.float32) / 255.0
-    return read_png(p, "RGB", MAX_EDGE).astype(np.float32) / 255.0 * 2.0 - 1.0
+    rgb01 = read_png(p, "RGB", MAX_EDGE).astype(np.float32) / 255.0
+    if key == "control_image_path":
+        return rgb01
+    return rgb01 * 2.0 - 1.0
 
 
 def register_sd15(worker: EngineWorker, pipe, inpaint_pipe=None) -> None:
@@ -276,32 +285,65 @@ def register_sd15(worker: EngineWorker, pipe, inpaint_pipe=None) -> None:
                 target = inpaint_pipe
             target.generate(opts, status_cb=status_cb, result_cb=result_cb,
                             init_image=load_image(params, "init_img"),
-                            mask_image=load_image(params, "mask_img"))
+                            mask_image=load_image(params, "mask_img"),
+                            control_image=load_image(params,
+                                                     "control_image_path"))
         return generate
 
     worker.register_backend(GMT_SD_1_5, factory)
 
 
-def main():  # pragma: no cover
+def build_server(argv=None) -> ApiServer:
+    """The server `main` runs, from its command line: `--config` registers
+    the checkpoint-file backend (app/backends.py); `--random-weights`
+    serves seeded random bundles. One of the two is required: a server
+    never falls back from missing files to random weights."""
     import argparse
 
-    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+    from cremage_tpu_torch.services.safety import TextSafetyChecker
 
     p = argparse.ArgumentParser("cremage-tpu-torch-server")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8787)
+    p.add_argument("--config", default=None,
+                   help="config.yaml (the JAX package's preferences file) "
+                        "naming the checkpoint files")
+    p.add_argument("--deny-term", action="append", default=[],
+                   help="prompt deny-list term (repeatable)")
+    p.add_argument("--random-weights", action="store_true",
+                   help="smoke runs only: serve bundles of random weights")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the bundle's random weights")
+                   help="seed of --random-weights' bundles")
     p.add_argument("--inpaint", action="store_true",
-                   help="also build the 9-channel inpainting bundle")
-    args = p.parse_args()
+                   help="with --random-weights, also build the 9-channel "
+                        "inpainting bundle")
+    args = p.parse_args(argv)
+    if bool(args.config) == bool(args.random_weights):
+        p.error("give exactly one of --config and --random-weights")
+    if args.inpaint and not args.random_weights:
+        p.error("--inpaint goes with --random-weights (with --config, mode "
+                "'inpainting' loads ldm_inpaint_model)")
+    worker = EngineWorker(text_safety=TextSafetyChecker(
+        deny_terms=args.deny_term) if args.deny_term else None)
+    if args.config:
+        from cremage_tpu_torch.app.backends import sd15_factory
+        from cremage_tpu_torch.core.config import load_preferences
+
+        worker.register_backend(GMT_SD_1_5,
+                                sd15_factory(load_preferences(args.config)))
+    else:
+        from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+
+        inpaint = (SD15Pipeline(build_sd15_bundle(seed=args.seed, inpaint=True))
+                   if args.inpaint else None)
+        register_sd15(worker, SD15Pipeline(build_sd15_bundle(seed=args.seed)),
+                      inpaint)
+    return ApiServer(worker=worker, host=args.host, port=args.port)
+
+
+def main(argv=None):  # pragma: no cover
     logging.basicConfig(level=logging.INFO)
-    worker = EngineWorker()
-    inpaint = (SD15Pipeline(build_sd15_bundle(seed=args.seed, inpaint=True))
-               if args.inpaint else None)
-    register_sd15(worker, SD15Pipeline(build_sd15_bundle(seed=args.seed)),
-                  inpaint)
-    ApiServer(worker=worker, host=args.host, port=args.port).start(block=True)
+    build_server(argv).start(block=True)
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -9,9 +9,11 @@ Same message protocol as the JAX package:
 
 One worker thread drains the queue into the registered backends; PNG
 encoding runs on a one-thread pool so the device starts the next batch
-while the previous one compresses, and results post in generation order.
-Request coalescing, the prompt safety gate and path delivery of results
-are not ported yet.
+while the previous one compresses, and results post in generation order. With a `text_safety` checker
+(services/safety.py), an inference job whose prompt it blocks never
+reaches the queue: its only message is a failed job_done, as in the JAX
+worker. Request coalescing and path delivery of results are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ class EngineWorker:
     generate(parameters: dict, status_cb, result_cb), run lazily on first
     use (model load happens in the worker thread)."""
 
-    def __init__(self):
+    def __init__(self, text_safety=None):
+        self.text_safety = text_safety
         self.job_queue: "queue.Queue[dict]" = queue.Queue()
         self.status_queue: "queue.Queue[Any]" = queue.Queue()
         self._factories: Dict[str, Callable[[], Callable]] = {}
@@ -65,6 +68,19 @@ class EngineWorker:
         self._encode_pool.shutdown(wait=join)
 
     def submit(self, job: dict) -> None:
+        if (self.text_safety is not None
+                and job.get("type") == MP_MESSAGE_TYPE_INFERENCE):
+            params = job.get("parameters", {})
+            prompt = params.get("prompt", params.get("positive_prompt", ""))
+            if params.get("safety_check", True) and prompt \
+                    and self.text_safety.should_block(prompt):
+                self.status_queue.put({"job_done": {
+                    "ok": False,
+                    "error": "Safety check detected potentially sensitive "
+                             "word(s) in prompt. To disable safety check, "
+                             "set safety_check=false.",
+                }})
+                return
         self.job_queue.put(job)
 
     def _backend_for(self, model_type: str) -> Callable:

@@ -51,6 +51,10 @@
 // - The key tile is chosen per call (ops/flash_attention.py plan_flash): one
 //   80-key tile up to 80 keys (the 77-key cross-attention runs no rescale),
 //   otherwise 128.
+// - Head dims: 40 (as 48), 80 and 160 in the UNet, 512 in the VAE, and 64 in
+//   the image safety checker's CLIP ViT-L/14 tower (257 tokens: two full
+//   128-key tiles and a ragged one of 1 key; 257 q rows over 192-row items
+//   leave a second item of 65 rows).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -516,6 +520,8 @@ extern "C" int cremage_flash_attention_bf16(const void* q, const void* k, const 
   switch (key) {
     case 48080'13: return launch<Plan<48, 80, 1, 3>>(a);
     case 48128'13: return launch<Plan<48, 128, 1, 3>>(a);
+    case 64080'13: return launch<Plan<64, 80, 1, 3>>(a);
+    case 64128'13: return launch<Plan<64, 128, 1, 3>>(a);
     case 80080'13: return launch<Plan<80, 80, 1, 3>>(a);
     case 80128'13: return launch<Plan<80, 128, 1, 3>>(a);
     case 160080'12: return launch<Plan<160, 80, 1, 2>>(a);

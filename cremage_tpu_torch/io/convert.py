@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 # rank-2 tensors that are (num, dim) tables, not linear layers
-_NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding")
+_NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
+                         "concept_embeds", "special_care_embeds")
 
 
 def normalize_key(key: str) -> str:

@@ -7,7 +7,9 @@ Module names follow the torch checkpoint keys under
 Sequential slots that hold no parameters (SiLU, dropout) are Identity
 placeholders so the indices match. Attention goes through ops/attention.py
 (kernel K1 on CUDA), every GroupNorm through ops/groupnorm.py (kernel K2).
-IP-Adapter, ToMe, DeepCache and ControlNet are not ported yet.
+`forward(..., control=)` adds a ControlNet's residuals (models/controlnet.py)
+to the skip connections and the middle block's output. IP-Adapter, ToMe and
+DeepCache are not ported yet.
 """
 from __future__ import annotations
 
@@ -171,8 +173,57 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+def encoder_blocks(cfg: UNetConfig, in_channels: int):
+    """The UNet's encoder half, shared with the ControlNet: (time_embed,
+    input_blocks, middle_block, the channels of each input block's output,
+    the downsampling factor at the bottom)."""
+    mc = cfg.model_channels
+    ted = mc * 4
+    depths = cfg.transformer_depth
+    time_embed = nn.Sequential(Linear(mc, ted), nn.Identity(), Linear(ted, ted))
+    input_blocks = nn.ModuleList(
+        [nn.ModuleList([Conv2d(in_channels, mc, 3, padding=1)])])
+    chans = [mc]
+    ch, ds = mc, 1
+    n_levels = len(cfg.channel_mult)
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            layers = [ResBlock(ch, ted, mc * mult)]
+            ch = mc * mult
+            if ds in cfg.attention_resolutions:
+                heads, dh = _heads_for(ch, cfg)
+                layers.append(SpatialTransformer(
+                    ch, cfg.context_dim, heads, dh, depths[level]))
+            input_blocks.append(nn.ModuleList(layers))
+            chans.append(ch)
+        if level != n_levels - 1:
+            input_blocks.append(nn.ModuleList([Downsample(ch)]))
+            chans.append(ch)
+            ds *= 2
+    heads, dh = _heads_for(ch, cfg)
+    middle_block = nn.ModuleList([
+        ResBlock(ch, ted, ch),
+        SpatialTransformer(ch, cfg.context_dim, heads, dh,
+                           cfg.transformer_depth_middle),
+        ResBlock(ch, ted, ch)])
+    return time_embed, input_blocks, middle_block, chans, ds
+
+
+def run_layers(layers, h, emb, context):
+    """One input/middle/output block: its layers in order."""
+    for layer in layers:
+        if isinstance(layer, ResBlock):
+            h = layer(h, emb)
+        elif isinstance(layer, SpatialTransformer):
+            h = layer(h, context)
+        else:
+            h = layer(h)
+    return h
+
+
 class UNetModel(nn.Module):
-    """The denoising UNet: forward(x NCHW, t (B,), context (B, L, D))."""
+    """The denoising UNet: forward(x NCHW, t (B,), context (B, L, D),
+    control=None)."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -180,33 +231,10 @@ class UNetModel(nn.Module):
         mc = cfg.model_channels
         ted = mc * 4
         depths = cfg.transformer_depth
-        self.time_embed = nn.Sequential(Linear(mc, ted), nn.Identity(),
-                                        Linear(ted, ted))
-        self.input_blocks = nn.ModuleList(
-            [nn.ModuleList([Conv2d(cfg.in_channels, mc, 3, padding=1)])])
-        chans = [mc]
-        ch, ds = mc, 1
         n_levels = len(cfg.channel_mult)
-        for level, mult in enumerate(cfg.channel_mult):
-            for _ in range(cfg.num_res_blocks):
-                layers = [ResBlock(ch, ted, mc * mult)]
-                ch = mc * mult
-                if ds in cfg.attention_resolutions:
-                    heads, dh = _heads_for(ch, cfg)
-                    layers.append(SpatialTransformer(
-                        ch, cfg.context_dim, heads, dh, depths[level]))
-                self.input_blocks.append(nn.ModuleList(layers))
-                chans.append(ch)
-            if level != n_levels - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch)]))
-                chans.append(ch)
-                ds *= 2
-        heads, dh = _heads_for(ch, cfg)
-        self.middle_block = nn.ModuleList([
-            ResBlock(ch, ted, ch),
-            SpatialTransformer(ch, cfg.context_dim, heads, dh,
-                               cfg.transformer_depth_middle),
-            ResBlock(ch, ted, ch)])
+        (self.time_embed, self.input_blocks, self.middle_block, chans,
+         ds) = encoder_blocks(cfg, cfg.in_channels)
+        ch = chans[-1]
         self.output_blocks = nn.ModuleList()
         for level in reversed(range(n_levels)):
             out_ch = mc * cfg.channel_mult[level]
@@ -225,18 +253,10 @@ class UNetModel(nn.Module):
                                  nn.Identity(),
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))
 
-    @staticmethod
-    def _run(layers, h, emb, context):
-        for layer in layers:
-            if isinstance(layer, ResBlock):
-                h = layer(h, emb)
-            elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
-            else:
-                h = layer(h)
-        return h
-
-    def forward(self, x, timesteps, context):
+    def forward(self, x, timesteps, context, control=None):
+        """`control`: (one residual per input block, the middle block's
+        residual), added to the skips and the middle output as the JAX
+        UNet adds them."""
         dtype = self.cfg.dtype
         t_emb = timestep_embedding(timesteps, self.cfg.model_channels).to(dtype)
         emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
@@ -244,10 +264,14 @@ class UNetModel(nn.Module):
         context = context.to(dtype)
         hs = []
         for layers in self.input_blocks:
-            h = self._run(layers, h, emb, context)
+            h = run_layers(layers, h, emb, context)
             hs.append(h)
-        h = self._run(self.middle_block, h, emb, context)
+        h = run_layers(self.middle_block, h, emb, context)
+        if control is not None:
+            input_res, middle_res = control
+            h = h + middle_res.to(h.dtype)
+            hs = [hi + ri.to(hi.dtype) for hi, ri in zip(hs, input_res)]
         for layers in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
-            h = self._run(layers, h, emb, context)
+            h = run_layers(layers, h, emb, context)
         return self.out[2](self.out[0](h))

@@ -17,8 +17,9 @@ import torch
 from cremage_tpu_torch.ops.attention import dot_product_attention
 
 # padded head dims (round_up(d, 16)) the kernel is instantiated for: the
-# main path's d = 40, 80, 160 (UNet) and 512 (VAE mid-block)
-SUPPORTED_PADDED_D = (48, 80, 160, 512)
+# main path's d = 40, 80, 160 (UNet) and 512 (VAE mid-block), and d = 64
+# (the image safety checker's CLIP ViT-L/14 tower, 16 heads over 257 tokens)
+SUPPORTED_PADDED_D = (48, 64, 80, 160, 512)
 
 SMEM_LIMIT = 232448   # shared memory one block can use on an H100
 # the plain version computes at most this many bytes of fp32 logits at once

@@ -8,14 +8,15 @@ equal length.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from cremage_tpu_torch.io.ti import load_embedding
 from cremage_tpu_torch.models.clip import CLIPTextModel, hidden_state_for_clip_skip
 from cremage_tpu_torch.prompt.chunking import (
-    generate_weighted_chunks, pad_conditioning_to_match,
+    generate_weighted_chunks, make_ti_fetch, pad_conditioning_to_match,
 )
 from cremage_tpu_torch.prompt.parser import compute_prompt_score
 from cremage_tpu_torch.prompt.tokenizer import CLIPTokenizer
@@ -24,14 +25,18 @@ from cremage_tpu_torch.prompt.tokenizer import CLIPTokenizer
 class TextEncoder:
     """Bundles a CLIP text model and a tokenizer into the
     prompt -> (L, dim) conditioning function. The model runs on the device
-    its parameters are on."""
+    its parameters are on; `<embedding:name>` tags load from
+    `embedding_dir`."""
 
-    def __init__(self, model: CLIPTextModel, tokenizer: CLIPTokenizer):
+    def __init__(self, model: CLIPTextModel, tokenizer: CLIPTokenizer,
+                 embedding_dir: Optional[str] = None):
         self.model = model
         self.tokenizer = tokenizer
+        self.embedding_dir = embedding_dir
         # memoized conditioning per (prompt, clip_skip): serving workloads
         # repeat prompts across seeds and batches; bounded FIFO, dies with
-        # the bundle so reloaded weights never serve stale states
+        # the bundle so reloaded weights never serve stale states. Prompts
+        # with TI tags are not memoized: their files can change on disk
         self._encode_cache: dict = {}
 
     @property
@@ -45,12 +50,14 @@ class TextEncoder:
 
     def encode(self, prompt: str, clip_skip: int = 1) -> np.ndarray:
         """Weighted prompt -> (n*77, hidden) float32 conditioning."""
+        cacheable = "<" not in prompt
         ck = (prompt, clip_skip)
-        hit = self._encode_cache.get(ck)
+        hit = self._encode_cache.get(ck) if cacheable else None
         if hit is not None:
             return hit
         chunks = generate_weighted_chunks(
-            self.tokenizer, self._embed_tokens, compute_prompt_score(prompt))
+            self.tokenizer, self._embed_tokens, compute_prompt_score(prompt),
+            ti_fetch=make_ti_fetch(self.embedding_dir, load_embedding))
         outs = []
         with torch.no_grad():
             for chunk in chunks:
@@ -59,6 +66,8 @@ class TextEncoder:
                 z = hidden_state_for_clip_skip(hidden, clip_skip)
                 outs.append(z[0].float().cpu().numpy())
         out = np.concatenate(outs, axis=0)
+        if not cacheable:
+            return out
         if len(self._encode_cache) >= 32:
             self._encode_cache.pop(next(iter(self._encode_cache)))
         self._encode_cache[ck] = out

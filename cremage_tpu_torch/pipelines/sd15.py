@@ -8,10 +8,13 @@ VAE encoder's posterior sample with t_enc = max(1, int(strength * steps)),
 inpainting through the 9-channel UNet with [x, mask, masked-image latent]
 conditioning and the result composited over the unmasked pixels, hires fix
 ("Latent" nearest or "Lanczos" pixel upscale, then img2img at the new
-size), a batch loop with per-image seed = seed + i, the VAE decode
-quantized to uint8 on the device, `generation_parameters` metadata, and
-the "i / n" step statuses and per-image result callback of the JAX
-pipeline.
+size), a ControlNet's residuals in txt2img (the control image in [0, 1],
+NHWC, tiled over the CFG batch, scaled by control_weight), wildcards
+re-resolved per batch, a batch loop with per-image seed = seed + i, the VAE
+decode quantized to uint8 on the device, the image safety check (flagged
+images replaced; each image's flag in its metadata as "nsfw"), the
+watermark, `generation_parameters` metadata, and the "i / n" step statuses
+and per-image result callback of the JAX pipeline.
 
 The sampler state is NHWC float32 as in the JAX package; the UNet runs in
 NCHW on the pipeline's device. Every random number comes from the batch's
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -35,6 +39,7 @@ from cremage_tpu_torch.core.rng import (
     GeneratorNoise, NoiseSource, resolve_device, resolve_seed,
 )
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from cremage_tpu_torch.models.controlnet import ControlNet
 from cremage_tpu_torch.models.layers import set_compute_dtype
 from cremage_tpu_torch.models.unet import UNetConfig, UNetModel, sd15_unet_config
 from cremage_tpu_torch.models.vae import (
@@ -42,10 +47,13 @@ from cremage_tpu_torch.models.vae import (
 )
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
+from cremage_tpu_torch.prompt.wildcards import resolve_wildcards
 from cremage_tpu_torch.samplers import ddim as DDIM
 from cremage_tpu_torch.samplers import kdiffusion as K
 from cremage_tpu_torch.samplers import schedules as S
 from cremage_tpu_torch.samplers.denoiser import EpsDenoiser, cfg_denoiser
+from cremage_tpu_torch.services.safety import ImageSafetyChecker, default_image_safety
+from cremage_tpu_torch.services.watermark import embed_watermark
 from cremage_tpu_torch.utils.image import device_to_img01
 from cremage_tpu_torch.utils.resize import resize
 
@@ -67,6 +75,9 @@ class SD15Bundle:
     text: TextEncoder
     vae: AutoencoderKL
     schedule: S.DiscreteSchedule
+    controlnet: Optional[ControlNet] = None
+    # pipelines/loader.py: the files' bytes and load seconds, the LoRA merge
+    load_report: Optional[Dict[str, Any]] = None
 
     @property
     def inpaint(self) -> bool:
@@ -84,14 +95,8 @@ def check_supported(opts: GenerationOptions) -> None:
     unsupported = {
         "sampler": opts.sampler not in SAMPLER_MENU,
         "mode": opts.mode not in MODES,
-        "control_net": bool(opts.control_net),
         "face_input_img": bool(opts.face_input_img or opts.face_model),
-        "safety_check": bool(opts.safety_check),
-        "watermark": bool(opts.watermark),
         "auto_face_fix": bool(opts.auto_face_fix),
-        "wildcards_path": bool(opts.wildcards_path),
-        "lora_models": bool(opts.lora_models),
-        "embedding_path": bool(opts.embedding_path),
         "deep_cache": int(opts.deep_cache) > 1,
         "tome_ratio": float(opts.tome_ratio) > 0.0,
         "ada_cache": float(opts.ada_cache) > 0.0,
@@ -106,11 +111,26 @@ def check_supported(opts: GenerationOptions) -> None:
 
 
 class SD15Pipeline:
-    def __init__(self, bundle: SD15Bundle, device=None):
+    """`safety`: the image safety checker of jobs with safety_check on; by
+    default `default_image_safety` (the CompVis checker on
+    $SAFETY_CHECKER_PATH's weights, else a pass-through), built at the
+    first such job."""
+
+    def __init__(self, bundle: SD15Bundle, device=None,
+                 safety: Optional[ImageSafetyChecker] = None):
         self.device = resolve_device(device)
         self.bundle = bundle
-        for m in (bundle.unet, bundle.text.model, bundle.vae):
-            m.to(self.device).eval()
+        self._safety = safety
+        for m in (bundle.unet, bundle.text.model, bundle.vae,
+                  bundle.controlnet):
+            if m is not None:
+                m.to(self.device).eval()
+
+    @property
+    def safety(self) -> ImageSafetyChecker:
+        if self._safety is None:
+            self._safety = default_image_safety(device=self.device)
+        return self._safety
 
     def _conditioning(self, opts: GenerationOptions, batch: int):
         c, uc = self.bundle.text.encode_pair(opts.prompt, opts.negative_prompt,
@@ -121,19 +141,34 @@ class SD15Pipeline:
             return t[None].expand((batch,) + t.shape)
         return tile(c), tile(uc)
 
-    def _eps_model(self, extra: Optional[torch.Tensor] = None):
+    def _eps_model(self, extra: Optional[torch.Tensor] = None,
+                   hint: Optional[torch.Tensor] = None,
+                   control_weight: float = 1.0):
         """eps(x, t, cond): NHWC latents in, NHWC eps out; the UNet runs
         NCHW. `extra` (the inpainting channels) is tiled over the CFG
         batch and appended after x's channels, as the JAX package
-        concatenates them channel-last."""
+        concatenates them channel-last. With `hint` (NCHW, the bundle's
+        ControlNet present) the ControlNet runs on x and the hint tiled
+        over the CFG batch, and its residuals, times control_weight, go
+        into the UNet."""
         unet = self.bundle.unet
+        cn = self.bundle.controlnet if hint is not None else None
 
         def eps(x, t, cond):
+            control = None
+            if cn is not None:
+                h = hint.repeat(x.shape[0] // hint.shape[0], 1, 1, 1)
+                res_in, res_mid = cn(x.permute(0, 3, 1, 2).contiguous(), h,
+                                     t, cond)
+                if control_weight != 1.0:    # x * 1.0 is exact: skipped
+                    res_in = [r * control_weight for r in res_in]
+                    res_mid = res_mid * control_weight
+                control = (res_in, res_mid)
             if extra is not None:
                 ec = extra.repeat(x.shape[0] // extra.shape[0], 1, 1, 1)
                 x = torch.cat([x, ec.to(x.dtype)], dim=-1)
-            return unet(x.permute(0, 3, 1, 2).contiguous(), t, cond) \
-                .permute(0, 2, 3, 1)
+            return unet(x.permute(0, 3, 1, 2).contiguous(), t, cond,
+                        control).permute(0, 2, 3, 1)
         return eps
 
     def _sigma0(self, opts) -> float:
@@ -150,7 +185,9 @@ class SD15Pipeline:
                 t_enc: Optional[int] = None,
                 init_latent: Optional[torch.Tensor] = None,
                 extra: Optional[torch.Tensor] = None,
-                status_cb: StatusCb = _noop_status) -> torch.Tensor:
+                status_cb: StatusCb = _noop_status,
+                hint: Optional[torch.Tensor] = None,
+                control_weight: float = 1.0) -> torch.Tensor:
         """Run the selected sampler; with t_enc, partial denoising from
         init_latent after a stochastic encode (img2img)."""
         name, scale = opts.sampler, float(opts.scale)
@@ -160,10 +197,11 @@ class SD15Pipeline:
             status_cb(f"{i + 1} / {total}")
 
         sched = self.bundle.schedule
+        eps_model = self._eps_model(extra, hint, control_weight)
         if name == "DDIM":
             ddim = DDIM.make_ddim_schedule(sched.alphas_cumprod, steps,
                                            eta=opts.ddim_eta)
-            eps_cfg = cfg_denoiser(self._eps_model(extra), c, uc, scale)
+            eps_cfg = cfg_denoiser(eps_model, c, uc, scale)
             if t_enc is None:
                 return DDIM.sample(eps_cfg, x_init, ddim, noise,
                                    progress_cb=progress)
@@ -183,8 +221,7 @@ class SD15Pipeline:
                           s_tmin=opts.sampler_s_tmin,
                           s_tmax=opts.sampler_s_tmax,
                           s_noise=opts.sampler_s_noise)
-        den = cfg_denoiser(EpsDenoiser(self._eps_model(extra), sched),
-                           c, uc, scale)
+        den = cfg_denoiser(EpsDenoiser(eps_model, sched), c, uc, scale)
         x = x_init
         if t_enc is not None:       # k-space stochastic encode
             sigmas = S.truncate_for_img2img(sigmas, t_enc)
@@ -195,14 +232,19 @@ class SD15Pipeline:
 
     def txt2img_latents(self, opts: GenerationOptions, c, uc,
                         noise: NoiseSource,
-                        status_cb: StatusCb = _noop_status) -> torch.Tensor:
-        """-> (B, H/f, W/f, 4) float32 latents (hires fix included)."""
+                        status_cb: StatusCb = _noop_status,
+                        hint: Optional[torch.Tensor] = None,
+                        control_weight: float = 1.0) -> torch.Tensor:
+        """-> (B, H/f, W/f, 4) float32 latents (hires fix included; the
+        ControlNet, given `hint`, steers the first pass only, as in the
+        JAX pipeline)."""
         h, w = opts.H // opts.f, opts.W // opts.f
         b = c.shape[0]
         x = noise.initial((b, h, w, self.bundle.unet.cfg.out_channels)) * \
             self._sigma0(opts)
         lat = self._sample(opts, x, c, uc, noise, opts.sampling_steps,
-                           status_cb=status_cb)
+                           status_cb=status_cb, hint=hint,
+                           control_weight=control_weight)
         if opts.use_hires_fix and opts.hires_fix_scale_factor > 1.0:
             lat = self._hires_fix(opts, lat, c, uc, noise.hires(), status_cb)
         return lat
@@ -272,6 +314,8 @@ class SD15Pipeline:
         noise: Optional[NoiseFactory] = None,
         init_image: Optional[np.ndarray] = None,
         mask_image: Optional[np.ndarray] = None,
+        control_image: Optional[np.ndarray] = None,
+        control_weight: float = 1.0,
     ) -> List[Tuple[np.ndarray, Dict[str, Any]]]:
         """Run the job: n_iter batches x n_samples images.
 
@@ -279,7 +323,9 @@ class SD15Pipeline:
         `noise(seed, device)` builds the noise source of the batch whose
         first image has `seed`; by default a torch.Generator seeded with it.
         img2img takes `init_image` ((H, W, 3) in [-1, 1]); inpainting also
-        `mask_image` ((H, W) in [0, 1], 1 where to inpaint).
+        `mask_image` ((H, W) in [0, 1], 1 where to inpaint). txt2img on a
+        bundle with a ControlNet takes `control_image` ((H, W, 3) or
+        (1, H, W, 3) in [0, 1]).
         """
         check_supported(opts)
         mode = opts.mode
@@ -294,24 +340,41 @@ class SD15Pipeline:
             raise ValueError("inpainting needs mask_img")
         noise = noise or GeneratorNoise
         base_seed = resolve_seed(opts.seed)
+        hint = None
+        if control_image is not None and self.bundle.controlnet is not None:
+            # in [0, 1], NHWC (the reference cldm hint range) -> NCHW
+            h = torch.as_tensor(np.asarray(control_image, np.float32))
+            h = h[None] if h.ndim == 3 else h
+            hint = h.permute(0, 3, 1, 2).to(
+                self.device, self.bundle.controlnet.cfg.dtype).contiguous()
+        wildcards = bool(opts.wildcards_path) and os.path.isdir(opts.wildcards_path)
         results = []
         img_index = 0
         with torch.no_grad():
             for it in range(opts.n_iter):
+                job = dataclasses.replace(opts)
+                if wildcards:
+                    job.prompt = resolve_wildcards(
+                        opts.prompt, opts.wildcards_path,
+                        rng=base_seed + img_index)
+                    job.negative_prompt = resolve_wildcards(
+                        opts.negative_prompt, opts.wildcards_path,
+                        rng=base_seed + img_index + 1)
                 b = opts.n_samples
                 status_cb(f"batch {it + 1}/{opts.n_iter}: encoding prompt")
-                c, uc = self._conditioning(opts, b)
+                c, uc = self._conditioning(job, b)
                 src = noise(base_seed + img_index, self.device)
                 t0 = time.perf_counter()
                 mask_b = None
                 if mode == MODE_TEXT_TO_IMAGE:
-                    lat = self.txt2img_latents(opts, c, uc, src, status_cb)
+                    lat = self.txt2img_latents(job, c, uc, src, status_cb,
+                                               hint, control_weight)
                 elif mode == MODE_IMAGE_TO_IMAGE:
-                    lat = self.img2img_latents(opts, init_image, c, uc, src,
+                    lat = self.img2img_latents(job, init_image, c, uc, src,
                                                status_cb)
                 else:
                     lat, mask_b = self.inpaint_latents(
-                        opts, init_image, mask_image, c, uc, src, status_cb)
+                        job, init_image, mask_image, c, uc, src, status_cb)
                 status_cb("decoding")
                 imgs = device_to_img01(decode_from_latent(
                     self.bundle.vae, lat.to(torch.bfloat16)))
@@ -322,13 +385,19 @@ class SD15Pipeline:
                     imgs = imgs * m + init01[None] * (1.0 - m)
                 logger.info("sampling+decode took %.2fs",
                             time.perf_counter() - t0)
+                flags = None
+                if job.safety_check:
+                    imgs, flags = self.safety.check(imgs)
                 for i in range(b):
-                    meta = dataclasses.asdict(opts)
+                    img = embed_watermark(imgs[i]) if job.watermark else imgs[i]
+                    meta = dataclasses.asdict(job)
                     meta["seed"] = base_seed + img_index
                     meta.pop("extra", None)
-                    results.append((imgs[i], meta))
+                    if flags is not None:
+                        meta["nsfw"] = flags[i]
+                    results.append((img, meta))
                     if result_cb is not None:
-                        result_cb(imgs[i], meta)
+                        result_cb(img, meta)
                     img_index += 1
         return results
 
@@ -341,8 +410,8 @@ def build_sd15_bundle(device=None, dtype: torch.dtype = torch.bfloat16,
                       inpaint: bool = False) -> SD15Bundle:
     """An SD1.5 bundle with seeded random weights, built on `device` in
     `dtype` (default: the full SD1.5 configs); `inpaint` gives the UNet
-    the inpainting checkpoints' 9 input channels. The port has no
-    checkpoint loader yet."""
+    the inpainting checkpoints' 9 input channels. For tests and smoke runs:
+    pipelines/loader.py loads a bundle from checkpoint files."""
     device = resolve_device(device)
     unet_cfg = unet_cfg or sd15_unet_config(dtype=dtype)
     if inpaint:

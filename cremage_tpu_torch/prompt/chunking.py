@@ -12,29 +12,61 @@ Behavior contract (reference
 - each chunk is laid out [BOS, content..., PAD...(to 75), EOS] — PADs sit
   *before* the final EOS; PAD == EOS token.
 
-``<embedding:name>`` textual-inversion tags are skipped, as the JAX
-package does when no embedding directory is configured: loading TI files
-is not ported yet.
+``<embedding:name>`` pairs load textual-inversion vectors from the
+embedding directory (SDXL dict embeddings contribute the tower's key) and
+are scaled by their score like words; missing files, or no directory, skip
+the tag, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+import logging
+import os
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from cremage_tpu_torch.prompt.tokenizer import BOS, EOS, PAD, CLIPTokenizer
-from cremage_tpu_torch.prompt.tokens import is_embedding_tag
+from cremage_tpu_torch.prompt.tokens import embedding_name, is_embedding_tag
+
+logger = logging.getLogger(__name__)
 
 BREAK_MARKER = "BREAK"
 CHUNK_CONTENT = 75
 
 EmbedFn = Callable[[Sequence[int]], np.ndarray]
+TIFetch = Callable[[str], Optional[np.ndarray]]
+
+
+def make_ti_fetch(
+    embedding_dir: Optional[str],
+    load_embedding: Callable[[str], Union[np.ndarray, Dict[str, np.ndarray]]],
+) -> TIFetch:
+    """File-based TI lookup (embedding_dir/name; a two-tower dict gives its
+    CLIP-L entry). A name that would leave the directory counts as
+    missing."""
+
+    def fetch(name: str) -> Optional[np.ndarray]:
+        if embedding_dir is None:
+            return None
+        root = os.path.realpath(embedding_dir)
+        path = os.path.join(embedding_dir, name)
+        inside = os.path.commonpath([root, os.path.realpath(path)]) == root
+        if not inside or not os.path.exists(path):
+            logger.warning("Ignoring missing %s", path)
+            return None
+        emb = load_embedding(path)
+        if isinstance(emb, dict):
+            emb = emb.get("clip_l")
+        return None if emb is None else np.asarray(emb, np.float32)
+
+    return fetch
 
 
 def generate_weighted_chunks(
     tokenizer: CLIPTokenizer,
     embed_fn: EmbedFn,
     word_score_pairs: Sequence[Tuple[str, float]],
+    ti_fetch: Optional[TIFetch] = None,
 ) -> List[np.ndarray]:
     """-> list of (77, dim) fp32 chunks."""
     rows: List[List[np.ndarray]] = [[]]
@@ -44,10 +76,17 @@ def generate_weighted_chunks(
     empty = len(word_score_pairs) == 1 and len(word_score_pairs[0][0]) == 0
     if not empty:
         for word, score in word_score_pairs:
+            emb = None
             if is_embedding_tag(word):
-                continue
-            ids = tokenizer.encode(word)[: CHUNK_CONTENT]
-            length = len(ids)
+                if ti_fetch is None:
+                    continue
+                emb = ti_fetch(embedding_name(word))
+                if emb is None:
+                    continue
+                length = emb.shape[0]
+            else:
+                ids = tokenizer.encode(word)[: CHUNK_CONTENT]
+                length = len(ids)
 
             new_len = cur_len + length
             if new_len > CHUNK_CONTENT:
@@ -62,9 +101,10 @@ def generate_weighted_chunks(
             else:
                 cur_len = new_len
 
-            if not ids:
-                continue
-            emb = np.asarray(embed_fn(ids), np.float32)
+            if emb is None:
+                if not ids:
+                    continue
+                emb = np.asarray(embed_fn(ids), np.float32)
             rows[i].append(emb * float(score))
 
     bos = np.asarray(embed_fn([BOS]), np.float32).reshape(1, -1)

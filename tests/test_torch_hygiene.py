@@ -10,17 +10,35 @@ import torch
 
 
 def test_port_imports_no_jax_and_no_jax_package():
+    """Every module of the port imports without jax or the JAX package, and
+    without a package the card's machine lacks (safetensors, yaml, cv2,
+    PIL, transformers): counted beyond what a bare `import torch, numpy,
+    scipy` loads. The checkpoint, LoRA, ControlNet and safety modules are
+    among those imported."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
+        import numpy, scipy, scipy.fft, torch
+        before = set(sys.modules)
         import cremage_tpu_torch.pipelines.sd15
         import cremage_tpu_torch.app.server
         import cremage_tpu_torch as pkg
-        for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-            importlib.import_module(info.name)
+        names = [info.name for info in
+                 pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "cremage_tpu")]
         assert not bad, bad
         assert any(m.startswith("cremage_tpu_torch.") for m in sys.modules)
+        absent = ("safetensors", "yaml", "cv2", "PIL", "transformers")
+        bad = sorted(m for m in set(sys.modules) - before
+                     if m.split(".")[0] in absent)
+        assert not bad, bad
+        for new in ("io.checkpoint", "io.lora", "io.ti", "pipelines.loader",
+                    "prompt.wildcards", "models.controlnet",
+                    "models.safety_checker", "services.safety",
+                    "services.watermark", "app.backends"):
+            assert "cremage_tpu_torch." + new in names, new
         print("clean")
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -59,6 +59,18 @@ def test_flash_reference_matches_jax(d, nk, scale):
         got.numpy())
 
 
+def test_flash_reference_matches_jax_at_d64():
+    """The safety checker's head dim, at its 257 tokens."""
+    import jax.numpy as jnp
+    from cremage_tpu.ops.attention import dot_product_attention_xla
+
+    q, k, v = _qkv(64, 1, 257, 257, 4, 64)
+    got = flash_attention_reference(*map(torch.from_numpy, (q, k, v)))
+    want = dot_product_attention_xla(*map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+
+
 def test_masked_reference_matches_jax():
     import jax.numpy as jnp
     from cremage_tpu.ops.attention import dot_product_attention_xla
@@ -103,7 +115,9 @@ HIRES_NQ_NK_D = [(9216, 9216, 40), (9216, 77, 40), (2304, 2304, 80),
                  (16384, 16384, 40), (16384, 77, 40), (4096, 4096, 80),
                  (4096, 77, 80), (1024, 1024, 160), (1024, 77, 160),
                  (16384, 16384, 512)]
-ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D
+# the image safety checker's CLIP ViT-L/14 tower: 257 tokens at d = 64
+SAFETY_NQ_NK_D = [(257, 257, 64)]
+ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D + SAFETY_NQ_NK_D
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -405,7 +419,13 @@ def cuda():
                                          # K/V tiles an item at d = 512, and
                                          # 9216 tokens at d = 40
                                          (1, 16384, 16384, 1, 512),
-                                         (2, 9216, 9216, 8, 40)])
+                                         (2, 9216, 9216, 8, 40),
+                                         # the safety checker's d = 64 at
+                                         # its batch of 4 and of 1: ragged
+                                         # key tiles (2 * 128 + 1) and a
+                                         # second item of 65 q rows
+                                         (4, 257, 257, 16, 64),
+                                         (1, 257, 257, 16, 64)])
 def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                for a in _qkv(d, b, nq, nk, h, d))

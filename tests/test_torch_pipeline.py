@@ -166,15 +166,14 @@ def test_txt2img_latents_match_jax(bundles):
 
 def test_unsupported_options_raise(bundles):
     """What the port does not run yet raises: the samplers beyond the
-    reference's menu, ControlNet, FaceID, LoRA, TI, the safety checker,
-    the watermark and the speed features."""
+    reference's menu, FaceID, auto face fix and the speed features.
+    (ControlNet, LoRA, TI, wildcards, the safety checker and the watermark
+    are ported: tests/test_torch_loader.py.)"""
     pipe = SD15Pipeline(bundles[1], device="cpu")
     for bad in (dict(sampler="PLMS"), dict(sampler="DPM Solver"),
-                dict(sampler="LCM"), dict(safety_check=True),
-                dict(watermark=True), dict(mode="face_fix"),
-                dict(control_net="x.pth"), dict(face_input_img="face.png"),
-                dict(lora_models="a.safetensors"), dict(embedding_path="ti"),
-                dict(wildcards_path="w"), dict(auto_face_fix=True),
+                dict(sampler="LCM"), dict(mode="face_fix"),
+                dict(face_input_img="face.png"), dict(face_model="f.bin"),
+                dict(auto_face_fix=True),
                 dict(tome_ratio=0.5), dict(deep_cache=2), dict(ada_cache=0.1),
                 dict(cfg_interval_low=0.5, cfg_interval_high=2.0)):
         with pytest.raises(NotImplementedError):

@@ -219,3 +219,97 @@ def test_load_image_reads_as_the_jax_backend(tmp_path, key, mode):
     assert got.dtype == want.dtype and got.shape == want.shape
     np.testing.assert_array_equal(got, want)
     assert load_image({key: str(tmp_path / "missing.png")}, key) is None
+
+
+def test_default_options_are_served(server):
+    """The JAX package's default job (safety_check on, no classifier weights
+    configured) is served, and each image's metadata carries its flag."""
+    _call(server + "/v1/generate", {"generator_model_type": "SD 1.5",
+                                    "prompt": "a cat", "H": 64, "W": 64,
+                                    "sampling_steps": 1, "sampler": "Euler"})
+    msgs = _drain(server, 1)
+    assert msgs[-1] == {"job_done": {"ok": True, "error": None}}
+    metas = [json.loads(m["generation_parameters"]) for m in msgs
+             if isinstance(m, dict) and "image_b64" in m]
+    assert len(metas) == 1 and metas[0]["safety_check"] is True
+    assert metas[0]["nsfw"] is False
+
+
+def test_deny_term_blocks_as_the_jax_worker():
+    from cremage_tpu.app.worker import EngineWorker as JWorker
+    from cremage_tpu.services.safety import TextSafetyChecker as JGate
+    from cremage_tpu_torch.services.safety import TextSafetyChecker
+
+    for params, blocked in (({"prompt": "a Bad cat"}, True),
+                            ({"prompt": "a bad cat", "safety_check": False}, False),
+                            ({"prompt": "a good cat"}, False)):
+        job = {"type": "inference", "generator_model_type": "SD 1.5",
+               "parameters": params}
+        ours = EngineWorker(text_safety=TextSafetyChecker(deny_terms=["bad"]))
+        theirs = JWorker(text_safety=JGate(deny_terms=["bad"]))
+        ours.submit(dict(job))
+        theirs.submit(dict(job))
+        assert ours.job_queue.qsize() == theirs.job_queue.qsize() == int(not blocked)
+        got = [ours.status_queue.get_nowait() for _ in range(ours.status_queue.qsize())]
+        want = [theirs.status_queue.get_nowait()
+                for _ in range(theirs.status_queue.qsize())]
+        assert got == want and len(got) == int(blocked)
+
+
+def test_control_image_reaches_the_pipeline_in_0_1(tmp_path):
+    """control_image_path is read in [0, 1], the range the pipeline's hint
+    takes; the JAX backend reads it in [-1, 1] (a fault of the reference,
+    not copied)."""
+    from cremage_tpu.app.backends import _load_image as j_load_image
+
+    rgb = np.random.RandomState(5).randint(0, 256, (16, 24, 3)).astype(np.uint8)
+    path = str(tmp_path / "hint.png")
+    Image.fromarray(rgb).save(path)
+    params = {"control_image_path": path, "prompt": "x", "safety_check": False}
+    seen = {}
+
+    class Pipe:
+        def generate(self, opts, **kw):
+            seen.update(kw)
+            return []
+
+    worker = EngineWorker()
+    register_sd15(worker, Pipe())
+    worker._run_one({"type": "inference", "generator_model_type": "SD 1.5",
+                     "parameters": params})
+    assert worker.status_queue.get_nowait() == {"job_done": {"ok": True,
+                                                             "error": None}}
+    np.testing.assert_array_equal(seen["control_image"], rgb / np.float32(255))
+    assert seen["control_image"].min() >= 0
+    np.testing.assert_allclose(seen["control_image"] * 2 - 1,
+                               j_load_image(params, "control_image_path"),
+                               atol=1e-6)
+
+
+def test_checkpoint_backend_needs_a_configured_model():
+    """With no model configured the job fails with FileNotFoundError (as
+    in the JAX backend), never falling back to random weights; one
+    resident pipeline is reused for the same files and replaced for
+    others."""
+    from cremage_tpu_torch.app.backends import ResidentInstance, sd15_factory
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.core.config import Preferences
+
+    worker = EngineWorker()
+    worker.register_backend("SD 1.5", sd15_factory(Preferences(ldm_model="None")))
+    worker._run_one({"type": "inference", "generator_model_type": "SD 1.5",
+                     "parameters": {"prompt": "x"}})
+    done = worker.status_queue.get_nowait()["job_done"]
+    assert not done["ok"] and "FileNotFoundError" in done["error"]
+    built = []
+    res = ResidentInstance()
+    a = res.get(("a",), lambda: built.append("a") or "A")
+    assert res.get(("a",), lambda: built.append("x") or "X") == a == "A"
+    assert res.get(("b",), lambda: built.append("b") or "B") == "B"
+    assert built == ["a", "b"]
+    for argv in ([], ["--config", "c.yaml", "--random-weights"],
+                 ["--config", "c.yaml", "--inpaint"]):
+        with pytest.raises(SystemExit):
+            build_server(argv)
+    with pytest.raises(FileNotFoundError):
+        build_server(["--config", "/nonexistent/config.yaml"])
