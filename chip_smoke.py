@@ -59,14 +59,32 @@ is nonzero and no final line is printed:
    K1 / K2 launches equal the counts derived from the module tree (the
    ControlNet's calls in each of the 20 evaluations at batch 8, the safety
    checker's 24 K1 calls per batch); a deny-listed prompt is refused;
-11. new paths' shapes: hooks record the shape of every K1 and K2 call of
-   the checked run of each modes request, of the samplers phase and of
-   sd15_full (the recorded calls must add up to the launch counts), and
-   the same checks as 4 and 5 run at every shape the main path's rows do
-   not hold (the safety checker's d = 64 at batch 4 and 1 among them);
-   each row lists the paths that run its shape with their calls per
-   request;
-12. the kernels line (per-request totals over the main path's shapes, as
+11. sdxl: SDXL base as the JAX package benchmarks it (bench_sdxl: 1024^2,
+   30 steps of EulerEDMSampler on LegacyDDPMDiscretization, CFG 7.0,
+   batch 1), at full width and depth from seeded random fp16 files under
+   build/: a single-file checkpoint in the sgm key layout (bigG's
+   attention input projection fused, as published), a kohya LoRA over
+   UNet, te1 and te2 modules, a two-tower TI file and a config.yaml. The
+   --config server serves, with generator_model_type "SDXL": a 2-step
+   warm-up (the load), the job twice (timed: seconds per request and
+   images/s), once more with the shape hooks, one img2img request at
+   1024^2 (strength 0.75) and one txt2img request at 832x1216 (8 steps;
+   its lowest UNet level, 38x26, is where H*W % 8 != 0). Checks: every
+   weight equals its file's and the LoRA's 10 modules the merge within one
+   bf16 ulp; an unported sampler is refused; the images are finite,
+   non-constant and of their size; each request's K1 / K2 launches equal
+   the module tree's count and the recorded shapes' sum; one full-width
+   SDXL UNet eval in bf16 against fp32 through the plain versions, on the
+   card;
+12. new paths' shapes: hooks record the shape of every K1 and K2 call of
+   the checked run of each modes request, of the samplers phase, of
+   sd15_full and of sdxl's requests (the recorded calls must add up to
+   the launch counts), and the same checks as 4 and 5 run at every shape
+   the main path's rows do not hold (the safety checker's d = 64 at batch
+   4 and 1, SDXL's d = 64 at 10 and 20 heads among them), and at K2's
+   H*W % 8 != 0 cases (K2_ANY_HW); each row lists the paths that run its
+   shape with their calls per request;
+13. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -103,7 +121,14 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=240, sd15_full=480,
-                new_shapes=480)
+                sdxl=600, new_shapes=480)
+# K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
+# request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
+# start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
+# over a cluster of 4); one call each
+K2_ANY_HW = [(8, 1280, 10, 10, 1e-5, True), (8, 640, 18, 18, 1e-5, True),
+             (8, 1280, 9, 9, 1e-6, False), (8, 640, 9, 9, 1e-5, True),
+             (2, 160, 181, 183, 1e-6, False)]
 PROMPT = "a photograph of an astronaut riding a horse"
 NEGATIVE = "blurry, low quality"
 # sd15_full: a wildcard and a TI tag in the prompt, a rank-4 LoRA at 0.8
@@ -244,7 +269,7 @@ def recording(*models):
 
     hooks = []
     for model in models:
-        parts = ([model.unet, model.vae, model.controlnet]
+        parts = ([model.unet, model.vae, getattr(model, "controlnet", None)]
                  if hasattr(model, "unet") else [model])
         for m in (m for part in parts if part is not None
                   for m in part.modules()):
@@ -532,8 +557,8 @@ class Client:
             headers={"Content-Type": "application/json"})
         return json.loads(urllib.request.urlopen(req, timeout=60).read())
 
-    def generate(self, mode: str, params: dict):
-        self.call("/v1/generate", {"generator_model_type": "SD 1.5",
+    def generate(self, mode: str, params: dict, model_type: str = "SD 1.5"):
+        self.call("/v1/generate", {"generator_model_type": model_type,
                                    "mode": mode, "parameters": params})
 
     def drain(self, n_jobs: int, limit_s: float = 600):
@@ -976,13 +1001,7 @@ def bf16_ulp(x):
 
 
 def check_weights(bundle, safety_model, truth, unet_cfg):
-    """Every weight on the card against its file: equal where no LoRA
-    touched it, and each LoRA module's within one bf16 ulp of the merge
-    W + w * alpha / r * up @ down (float32) of the file's tensors.
-    -> a row of per-group checksums and counts; raises on a mismatch."""
-    import torch
-
-    dev = bundle.unet.time_embed[0].weight.device
+    """sd15_full's weights on the card against their files (check_groups)."""
     lora_sd = truth["lora"]
     targets = {}
     for mod, dest in lora_modules(unet_cfg).items():
@@ -991,19 +1010,31 @@ def check_weights(bundle, safety_model, truth, unet_cfg):
             targets[("unet" if model == "unet" else "clip", name + ".weight")] = mod
     groups = {"unet": bundle.unet, "clip": bundle.text.model, "vae": bundle.vae,
               "controlnet": bundle.controlnet, "safety": safety_model}
-    row = dict(phase="sd15_full_weights", groups={})
+    return check_groups("sd15_full_weights", groups, truth, targets)
+
+
+def check_groups(phase, groups, truth, targets):
+    """Every weight of `groups` ({group: model}) on the card against
+    truth[group] (its file's tensors): equal where no LoRA touched it, and
+    each LoRA target ({(group, key): kohya module}) within one bf16 ulp of
+    the merge W + w * alpha / r * up @ down (float32) of truth["lora"].
+    -> a row of per-group checksums and counts; raises on a mismatch."""
+    import torch
+
+    lora_sd = truth["lora"]
+    row = dict(phase=phase, groups={})
     moved = 0
     for group, model in groups.items():
         card_sum = file_sum = 0.0
         equal = lora = 0
         for key, p in model.state_dict().items():
-            want = truth[group][key].to(dev, p.dtype)
+            want = truth[group][key].to(p.device, p.dtype)
             mod = targets.get((group, key))
             if mod is not None:
-                up, down = (lora_sd[f"{mod}.lora_{s}.weight"].to(dev).float()
-                            for s in ("up", "down"))
+                up, down = (lora_sd[f"{mod}.lora_{s}.weight"].to(
+                    p.device).float() for s in ("up", "down"))
                 delta = (torch.einsum("orab,rihw->oihw", up, down)
-                         if up.ndim == 4 else up @ down)
+                         if up.ndim == 4 else up @ down).reshape(p.shape)
                 want_m = (want.float() + delta * (LORA_WEIGHT * LORA_ALPHA
                                                   / LORA_RANK)).to(p.dtype)
                 err = (p.float() - want_m.float()).abs()
@@ -1029,9 +1060,9 @@ def check_weights(bundle, safety_model, truth, unet_cfg):
     return row
 
 
-def expect_refused(client, params, what):
+def expect_refused(client, params, what, model_type="SD 1.5"):
     """POST a job that must fail before it runs: -> its error."""
-    client.generate("text_to_image", params)
+    client.generate("text_to_image", params, model_type)
     end = time.time() + 60
     while time.time() < end:
         for m in client.call("/v1/status")["messages"]:
@@ -1162,6 +1193,337 @@ def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
     return rows + [weights, row], shapes, (k1, k2)
 
 
+# SDXL: the JAX package's bench_sdxl job (1024^2, 30 steps of
+# EulerEDMSampler on LegacyDDPMDiscretization, CFG 7.0, batch 1)
+SDXL_RES, SDXL_STEPS, SDXL_CFG, SDXL_BATCH, SDXL_REQUESTS = 1024, 30, 7.0, 1, 2
+# SDXL's standard 832x1216 bucket (H, W): its lowest UNet level is 26x38
+SDXL_TALL, SDXL_TALL_STEPS = (1216, 832), 8
+SDXL_PROMPT = "a photograph of an astronaut riding a horse, <embedding:astro_xl.pt>"
+# kohya modules of sdxl's LoRA (UNet under diffusers names, te1 -> CLIP-L,
+# te2 -> OpenCLIP bigG), 2-D as kohya exports SDXL's; SDXL_LORA_CONV of them
+# in the 1x1-conv form of SD1.5's proj_in / proj_out, which the loader also
+# merges onto SDXL's Linear layers
+SDXL_LORA_CONV = ("lora_unet_down_blocks_2_attentions_0_proj_out",)
+SDXL_LORA = SDXL_LORA_CONV + (
+    "lora_unet_down_blocks_1_attentions_0_transformer_blocks_0_attn1_to_q",
+    "lora_unet_down_blocks_2_attentions_1_transformer_blocks_9_attn2_to_k",
+    "lora_unet_mid_block_attentions_0_transformer_blocks_5_ff_net_0_proj",
+    "lora_unet_mid_block_attentions_0_proj_in",
+    "lora_unet_up_blocks_0_attentions_2_proj_out",
+    "lora_unet_up_blocks_1_attentions_0_transformer_blocks_1_ff_net_2",
+    "lora_te1_text_model_encoder_layers_11_self_attn_v_proj",
+    "lora_te2_text_model_encoder_layers_0_self_attn_q_proj",
+    "lora_te2_text_model_encoder_layers_31_mlp_fc2",
+)
+
+
+def sdxl_configs():
+    """The published SDXL base widths and depths, in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.clip import CLIPTextConfig
+    from cremage_tpu_torch.models.open_clip import openclip_bigg_config
+    from cremage_tpu_torch.models.unet import sdxl_base_unet_config
+    from cremage_tpu_torch.models.vae import sdxl_vae_config
+
+    bf16 = torch.bfloat16
+    return dict(unet=sdxl_base_unet_config(dtype=bf16),
+                clip=CLIPTextConfig(dtype=bf16),
+                openclip=openclip_bigg_config(dtype=bf16),
+                vae=sdxl_vae_config(dtype=bf16))
+
+
+def fused_openclip(sd):
+    """The OpenCLIP tower's split q/k/v keys as the published checkpoints
+    store them: one attn.in_proj_weight / in_proj_bias, rows [q; k; v]."""
+    import torch
+
+    out = {}
+    for k, v in sd.items():
+        if ".attn.q_proj." in k:
+            base, kind = k.split(".attn.q_proj.")
+            out[f"{base}.attn.in_proj_{kind}"] = torch.cat(
+                [sd[f"{base}.attn.{n}_proj.{kind}"] for n in "qkv"])
+        elif ".attn.k_proj." not in k and ".attn.v_proj." not in k:
+            out[k] = v
+    return out
+
+
+def write_sdxl_files(root: Path, dev, cfgs: dict):
+    """Seeded random fp16 files of an SDXL base deployment under `root`: a
+    single-file checkpoint in the sgm key layout (the OpenCLIP tower's
+    attention input projection fused, its logit_scale, CLIP-L's
+    position_ids), a kohya LoRA (rank 4) over SDXL_LORA, a two-tower TI
+    file and a config.yaml. -> (paths, truth, {(group, key): module} of
+    the LoRA's targets)."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.io.lora import kohya_module_to_torch_name
+    from cremage_tpu_torch.models.clip import CLIPTextModel
+    from cremage_tpu_torch.models.open_clip import OpenCLIPTextModel
+    from cremage_tpu_torch.models.unet import UNetModel
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    root.mkdir(parents=True, exist_ok=True)
+
+    def host(sd):
+        return {k: v.half().cpu() for k, v in sd.items()}
+
+    truth = {"unet": host(seeded_state(UNetModel, cfgs["unet"], dev, 20)),
+             "clip": host(seeded_state(CLIPTextModel, cfgs["clip"], dev, 21)),
+             "openclip": host(seeded_state(OpenCLIPTextModel, cfgs["openclip"],
+                                           dev, 22)),
+             "vae": host(seeded_state(AutoencoderKL, cfgs["vae"], dev, 23))}
+    paths = {k: root / n for k, n in (
+        ("ckpt", "sdxl_base.safetensors"), ("lora", "lora_xl.safetensors"),
+        ("embeddings", "embeddings_sdxl"), ("config", "config.yaml"))}
+    ckpt = {}
+    for prefix, sd in ((CK.PREFIX_UNET, truth["unet"]),
+                       (CK.PREFIX_VAE, truth["vae"]),
+                       (CK.PREFIX_CLIP_SDXL, truth["clip"]),
+                       (CK.PREFIX_OPENCLIP_SDXL,
+                        fused_openclip(truth["openclip"]))):
+        ckpt.update({prefix + k: v for k, v in sd.items()})
+    ckpt[CK.PREFIX_CLIP_SDXL + CK.POSITION_IDS] = torch.arange(77)[None]
+    ckpt[CK.PREFIX_OPENCLIP_SDXL + "logit_scale"] = torch.tensor(4.6052)
+    CK.save_safetensors(str(paths["ckpt"]), ckpt)
+    del ckpt
+    with torch.device("meta"):
+        models = {"unet": UNetModel(cfgs["unet"]),
+                  "te": CLIPTextModel(cfgs["clip"]),
+                  "te2": OpenCLIPTextModel(cfgs["openclip"])}
+    group = {"unet": "unet", "te": "clip", "te2": "openclip"}
+    g = torch.Generator(device=dev).manual_seed(24)
+    lora, targets = {}, {}
+    for mod in SDXL_LORA:
+        which, name = kohya_module_to_torch_name(mod, cfgs["unet"])
+        w = models[which].get_submodule(name).weight
+        tail = (1, 1) if mod in SDXL_LORA_CONV else ()
+        lora[mod + ".lora_down.weight"] = 0.05 * torch.randn(
+            (LORA_RANK, w.shape[1]) + tail, device=dev, generator=g)
+        lora[mod + ".lora_up.weight"] = 0.05 * torch.randn(
+            (w.shape[0], LORA_RANK) + tail, device=dev, generator=g)
+        lora[mod + ".alpha"] = torch.tensor(LORA_ALPHA)
+        targets[(group[which], name + ".weight")] = mod
+    truth["lora"] = host(lora)
+    CK.save_safetensors(str(paths["lora"]), truth["lora"])
+    paths["embeddings"].mkdir(exist_ok=True)
+    gen = torch.Generator().manual_seed(25)
+    torch.save({"clip_l": 0.02 * torch.randn(2, cfgs["clip"].hidden_size,
+                                             generator=gen),
+                "clip_g": 0.02 * torch.randn(2, cfgs["openclip"].width,
+                                             generator=gen)},
+               paths["embeddings"] / "astro_xl.pt")
+
+    def q(v):
+        return "'" + str(v).replace("'", "''") + "'"
+    paths["config"].write_text("".join(f"{k}: {q(v)}\n" for k, v in (
+        ("sdxl_ldm_model_path", root), ("sdxl_ldm_model", paths["ckpt"].name),
+        ("sdxl_embedding_path", paths["embeddings"]),
+        ("sdxl_lora_model_path", root))))
+    return {k: str(v) for k, v in paths.items()}, truth, targets
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While open, the model code calls the kernels' plain versions (for an
+    fp32 reference on the card: the kernels take bf16 only)."""
+    from cremage_tpu_torch.models import layers
+    from cremage_tpu_torch.ops import flash_attention as FA
+    from cremage_tpu_torch.ops import groupnorm as GN
+
+    saved = FA.flash_attention, layers.group_norm_silu
+    FA.flash_attention = FA.flash_attention_reference
+    layers.group_norm_silu = GN.group_norm_silu_reference
+    try:
+        yield
+    finally:
+        FA.flash_attention, layers.group_norm_silu = saved
+
+
+def check_unet_sdxl(bundle, dev):
+    """The full-width SDXL UNet at a 1024^2 latent in bf16 through the
+    kernels against the same weights in fp32 through the plain versions,
+    both on the card."""
+    import torch
+
+    from cremage_tpu_torch.models.unet import UNetModel
+
+    with torch.device("meta"):
+        ref = UNetModel(dataclasses.replace(bundle.unet.cfg,
+                                            dtype=torch.float32))
+    ref.load_state_dict({k: v.float() for k, v in
+                         bundle.unet.state_dict().items()}, assign=True)
+    g = torch.Generator(device=dev).manual_seed(26)
+    lat = SDXL_RES // 8
+    x = torch.randn(1, 4, lat, lat, device=dev, generator=g)
+    t = torch.tensor([500.0], device=dev)
+    ctx = torch.randn(1, 77, 2048, device=dev, generator=g)
+    y = torch.randn(1, 2816, device=dev, generator=g)
+    with torch.no_grad():
+        got = bundle.unet(x, t, ctx, y=y).float()
+        with plain_kernels():
+            want = ref.eval()(x, t, ctx, y=y)
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_l2 = float((got - want).norm() / want.norm())
+    # bf16 rounds each layer's output to 2^-9 relative and the errors add
+    # up along the residual stream, as for SD1.5's UNet (unet_full_width)
+    tol = 5e-2
+    emit(dict(phase="sdxl_unet_full_width", shape=[1, 4, lat, lat],
+              max_rel_err=rel, rel_l2_err=rel_l2, tol=tol,
+              finite=bool(torch.isfinite(got).all())))
+    del ref, want
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(got).all() and rel <= tol):
+        raise AssertionError(f"SDXL UNet bf16 vs fp32: max relative error "
+                             f"{rel} > {tol}")
+
+
+def sdxl(dev, card, root: Path, res=SDXL_RES, steps=SDXL_STEPS,
+         tall=SDXL_TALL, tall_steps=SDXL_TALL_STEPS, check_unet=True):
+    """The phase sdxl (see the module docstring). -> (rows, {path: (K1
+    shapes, K2 shapes)}, launches of the timed requests)."""
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.io.png import encode_png
+
+    cfgs = sdxl_configs()
+    t0 = time.perf_counter()
+    paths, truth, targets = write_sdxl_files(root, dev, cfgs)
+    rows = [dict(phase="sdxl_files", seconds=time.perf_counter() - t0,
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()
+                        if os.path.isfile(v)},
+                 lora_modules=len(targets))]
+    emit(rows[0])
+    srv = build_server(["--config", paths["config"], "--port", "0"])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    job = {"prompt": SDXL_PROMPT, "negative_prompt": NEGATIVE, "H": res,
+           "W": res, "sampling_steps": steps, "sampler": "EulerEDMSampler",
+           "discretization": "LegacyDDPMDiscretization", "scale": SDXL_CFG,
+           "n_samples": SDXL_BATCH, "n_iter": 1, "safety_check": False,
+           "watermark": False, "lora_models": paths["lora"],
+           "lora_weights": str(LORA_WEIGHT)}
+    finite = []
+    shapes, runs = {}, {}
+
+    def run(name, params, mode="text_to_image", record=False):
+        """One job: -> (seconds, (K1, K2) launches, images, finite
+        decodes)."""
+        pipe = srv.worker._backends["SDXL"].resident.instance \
+            if "SDXL" in srv.worker._backends else None
+        finite.clear()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            if record:
+                attn, gn, _ = stack.enter_context(recording(pipe.bundle))
+                shapes[name] = (attn, gn)
+            t1 = time.perf_counter()
+            client.generate(mode, params, "SDXL")
+            msgs = client.drain(1)
+            wall = time.perf_counter() - t1
+        return wall, read_counts(), served_images(msgs), list(finite)
+
+    try:
+        refused = expect_refused(client, dict(job, sampler="LCM"),
+                                 "an unported sampler", "SDXL")
+        # the first run loads the files, then pays its shapes' first-call
+        # set-up (cuDNN, cuBLAS); 2 steps
+        first_s = run("warm-up", dict(job, sampling_steps=2, seed=1))[0]
+        bundle = srv.worker._backends["SDXL"].resident.instance.bundle
+        hook = bundle.vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        reset_counts()
+        t1 = time.perf_counter()
+        for r in range(SDXL_REQUESTS):
+            client.generate("text_to_image", dict(job, seed=10 + r), "SDXL")
+        images = served_images(client.drain(SDXL_REQUESTS))
+        wall = time.perf_counter() - t1
+        launches = read_counts()
+        decodes = list(finite)
+        # the same job once more with the shape hooks on (they cost host
+        # time, so the timed requests run without them)
+        runs["sdxl 1024^2"] = run("sdxl 1024^2", dict(job, seed=12),
+                                  record=True) + (steps, 0, 1)
+        up = client.call("/v1/upload", {"image": base64.b64encode(
+            encode_png(test_image(res)[0])).decode()})["path"]
+        runs["sdxl img2img"] = run(
+            "sdxl img2img", dict(job, seed=13, init_img=up, strength=STRENGTH),
+            "image_to_image", record=True) + (
+                max(1, int(STRENGTH * steps)), 1, 1)
+        runs["sdxl 832x1216"] = run(
+            "sdxl 832x1216", dict(job, seed=14, H=tall[0], W=tall[1],
+                                  sampling_steps=tall_steps), record=True) + (
+                tall_steps, 0, 1)
+        hook.remove()
+    finally:
+        srv.stop()
+
+    weights = check_groups("sdxl_weights", {
+        "unet": bundle.unet, "clip": bundle.conditioner.clip_l,
+        "openclip": bundle.conditioner.open_clip, "vae": bundle.vae},
+        truth, targets)
+    emit(weights)
+    want = [SDXL_REQUESTS * k for k in kernel_calls(bundle, steps, 0, 1)]
+    pixel_std = [float(np.std(p.astype(np.float32))) for p, _ in images]
+    row = dict(phase="sdxl", card=card, steps=steps, batch=SDXL_BATCH,
+               sampler=job["sampler"], cfg=SDXL_CFG, requests=SDXL_REQUESTS,
+               seconds=wall, seconds_per_request=wall / SDXL_REQUESTS,
+               images_per_s=len(images) / wall, first_run_seconds=first_s,
+               load={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9)
+                             / 1e9)
+                     for k, v in bundle.load_report["files"].items()},
+               lora=bundle.load_report["loras"],
+               images=[list(p.shape) for p, _ in images], pixel_std=pixel_std,
+               decodes_finite=decodes, refused=refused,
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    if len(images) != SDXL_REQUESTS * SDXL_BATCH or any(
+            p.shape != (res, res, 3) for p, _ in images) or \
+            len(decodes) != SDXL_REQUESTS or not all(decodes) or \
+            min(pixel_std) <= 0.0:
+        raise AssertionError(f"sdxl: images {row['images']}, finite decodes "
+                             f"{decodes}, pixel std {pixel_std}")
+    if any("<embedding:astro_xl.pt>" not in m["prompt"] for _, m in images):
+        raise AssertionError("sdxl: generation_data of another job")
+    if "NotImplementedError" not in (refused or ""):
+        raise AssertionError(f"sdxl: LCM not refused: {refused}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"sdxl: kernel launches {launches} != derived "
+                             f"{want}")
+    rows += [weights, row]
+    for name, (sec, (k1, k2), imgs, fin, evals, enc, dec) in runs.items():
+        attn, gn = shapes[name]
+        side = (tall if "832" in name else (res, res))
+        want = kernel_calls(bundle, evals, enc, dec)
+        r = dict(phase="sdxl_request", request=name, card=card, seconds=sec,
+                 unet_evals=evals, images=[list(p.shape) for p, _ in imgs],
+                 decodes_finite=fin,
+                 pixel_std=[float(np.std(p.astype(np.float32)))
+                            for p, _ in imgs],
+                 flash_attention_launches=k1, group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0],
+                 expected_group_norm_silu=want[1],
+                 recorded_calls=[sum(attn.values()), sum(gn.values())])
+        emit(r)
+        if len(imgs) != 1 or imgs[0][0].shape != tuple(side) + (3,) or \
+                min(r["pixel_std"]) <= 0.0 or fin != [True]:
+            raise AssertionError(f"{name}: images {r['images']}")
+        if not (k1, k2) == want == tuple(r["recorded_calls"]):
+            raise AssertionError(f"{name}: kernel launches {(k1, k2)}, derived"
+                                 f" {want}, recorded {r['recorded_calls']}")
+        rows.append(r)
+    if check_unet:
+        check_unet_sdxl(bundle, dev)
+    return rows, shapes, launches
+
+
 def full_configs():
     """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
     UNet's encoder on 4 latent channels) and the CompVis safety checker,
@@ -1279,6 +1641,15 @@ def main() -> int:
         shutil.rmtree(full_root, ignore_errors=True)
     paths.update(full_paths)
     torch.cuda.empty_cache()
+    watchdog("sdxl")
+    sdxl_root = REPO / "build" / "sdxl"
+    try:
+        _, sdxl_paths, sdxl_launches = sdxl(dev, card, sdxl_root)
+    finally:
+        shutil.rmtree(sdxl_root, ignore_errors=True)
+    paths.update(sdxl_paths)
+    paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
+    torch.cuda.empty_cache()
     watchdog("new_shapes")
     for path, (p_attn, p_gn) in paths.items():
         emit(dict(phase="shapes", path=path,
@@ -1292,7 +1663,8 @@ def main() -> int:
     def by_phase(key):
         return {"modes": sum(r[key] for r in mode_rows),
                 "samplers": sum(r[key] for r in sampler_rows),
-                "sd15_full": full_launches[key.startswith("group")]}
+                "sd15_full": full_launches[key.startswith("group")],
+                "sdxl": sdxl_launches[key.startswith("group")]}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

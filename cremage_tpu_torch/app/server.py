@@ -10,13 +10,15 @@ EngineWorker with the same JSON contract:
                       a job's init_img / mask_img names
 
 Run `python -m cremage_tpu_torch.app.server --config config.yaml --port N`
-to serve SD1.5 on the GPU from the checkpoint files that the config (the
-JAX package's config.yaml: ldm_model_path / ldm_model, ldm_inpaint_model,
-embedding_path) and each job (ckpt, vae_ckpt, lora_models, control_net)
-name (app/backends.py); $SAFETY_CHECKER_PATH names the image safety
-checker's weights. `--deny-term` adds a term to the prompt gate's deny
-list. For smoke runs only, `--random-weights --seed N [--inpaint]` serves
-bundles of seeded random weights instead.
+to serve SD1.5 and SDXL on the GPU from the checkpoint files that the
+config (the JAX package's config.yaml: ldm_model_path / ldm_model,
+ldm_inpaint_model, embedding_path; sdxl_ldm_model_path / sdxl_ldm_model,
+sdxl_embedding_path) and each job (ckpt, vae_ckpt, lora_models,
+control_net) name (app/backends.py); one model of either family stays
+resident. $SAFETY_CHECKER_PATH names the image safety checker's weights.
+`--deny-term` adds a term to the prompt gate's deny list. For smoke runs
+only, `--random-weights --seed N [--inpaint]` serves SD1.5 bundles of
+seeded random weights instead.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ import numpy as np
 from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
-    GENERATOR_MODEL_TYPES, GMT_SD_1_5, GenerationOptions, MODE_INPAINTING,
+    GENERATOR_MODEL_TYPES, GMT_SD_1_5, GMT_SDXL, GenerationOptions,
+    MODE_INPAINTING,
 )
 from cremage_tpu_torch.io.png import decode_png, encode_png, read_png
 
@@ -134,10 +137,14 @@ class ApiServer:
     def handle(self, method: str, path: str, body: Dict[str, Any]):
         if path == "/v1/meta":
             from cremage_tpu_torch.pipelines.sd15 import MODES, SAMPLER_MENU
+            from cremage_tpu_torch.samplers.edm import SGM_SAMPLER_NAMES
 
-            return {"model_types": [GMT_SD_1_5], "modes": list(MODES),
-                    "samplers": list(SAMPLER_MENU),
-                    "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU)}}
+            # SDXL runs the sgm menu, SD1.5 the k-diffusion/DDIM names, as
+            # the JAX server lists them
+            return {"model_types": [GMT_SD_1_5, GMT_SDXL],
+                    "modes": list(MODES), "samplers": list(SAMPLER_MENU),
+                    "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
+                                         GMT_SDXL: list(SGM_SAMPLER_NAMES)}}
         if path == "/v1/upload" and method == "POST":
             if not isinstance(body, dict) or "image" not in body:
                 raise BadRequest("body must be {\"image\": <b64 PNG>}")
@@ -326,11 +333,16 @@ def build_server(argv=None) -> ApiServer:
     worker = EngineWorker(text_safety=TextSafetyChecker(
         deny_terms=args.deny_term) if args.deny_term else None)
     if args.config:
-        from cremage_tpu_torch.app.backends import sd15_factory
+        from cremage_tpu_torch.app.backends import (
+            ResidentInstance, sd15_factory, sdxl_factory,
+        )
         from cremage_tpu_torch.core.config import load_preferences
 
-        worker.register_backend(GMT_SD_1_5,
-                                sd15_factory(load_preferences(args.config)))
+        prefs, resident = load_preferences(args.config), ResidentInstance()
+        worker.register_backend(GMT_SD_1_5, sd15_factory(prefs,
+                                                         resident=resident))
+        worker.register_backend(GMT_SDXL, sdxl_factory(prefs,
+                                                       resident=resident))
     else:
         from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
 

@@ -135,13 +135,15 @@ class GenerationOptions:
 
 @dataclass
 class Preferences:
-    """The SD1.5 model settings of the persistent app preferences (the JAX
-    package's field names and defaults; its other fields are read from
-    config.yaml and ignored). The backend loads ldm_model_path /
+    """The SD1.5 and SDXL model settings of the persistent app preferences
+    (the JAX package's field names and defaults; its other fields are read
+    from config.yaml and ignored). The SD1.5 backend loads ldm_model_path /
     ldm_model (ldm_inpaint_model for mode "inpainting") and TI files from
-    embedding_path; a job's ControlNet and LoRA paths are used as given, as
-    in the JAX backend, so control_model_path and lora_model_path only
-    tell a client where the model files are."""
+    embedding_path; the SDXL backend loads sdxl_ldm_model_path /
+    sdxl_ldm_model and TI files from sdxl_embedding_path. A job's VAE,
+    ControlNet and LoRA paths are used as given, as in the JAX backends, so
+    control_model_path and lora_model_path only tell a client where the
+    model files are."""
 
     ldm_model_path: str = "models/ldm"
     ldm_model: str = "v1-5-pruned.safetensors"
@@ -149,6 +151,9 @@ class Preferences:
     control_model_path: str = "models/control_net"
     lora_model_path: str = "models/loras"
     embedding_path: str = "models/embeddings"
+    sdxl_ldm_model_path: str = "models/ldm"
+    sdxl_ldm_model: str = "None"
+    sdxl_embedding_path: str = "models/embeddings_sdxl"
 
 
 _PREF_FIELDS = {f.name for f in dataclasses.fields(Preferences)}

@@ -48,6 +48,21 @@
 // partial moments per chunk into a scratch tensor, then each block
 // recombines its slab's partials and runs the same epilogue from device
 // memory. x is read twice there.
+//
+// Any H*W. Each kernel has two instantiations. kAligned (H*W % 8 == 0,
+// every shape of SD1.5 at 512^2, 768^2 and 1024^2): slabs and pieces start
+// on 16-byte boundaries and no 8-vector crosses a channel plane, so the
+// code above runs as it is. Otherwise (576^2, 640^2, 896^2, SDXL's
+// 832x1216, whose lowest UNet level is 26x38) a slab can start off a
+// 16-byte boundary and a vector can hold the end of one plane and the
+// start of the next. Each piece or chunk is then taken in the aligned
+// coordinates of x: a head of fewer than 8 elements up to the first
+// 16-byte boundary and a tail after the last one are read and written one
+// element at a time, the body between them moves as before (bulk copies,
+// 16-byte vectors), and the epilogue finds each element's channel plane
+// as it steps through the vector. The general code alone, in three
+// variants, ran the aligned shapes 3-18 % slower on an H100 (the epilogue's
+// pace is set by its instructions; PERF.md section 6), so they keep theirs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -209,10 +224,15 @@ __device__ __forceinline__ void finish_table(float2* table, const Span& sp, floa
   }
 }
 
+__device__ __forceinline__ float affine_silu(float v, float2 t, bool silu) {
+  const float r = fmaf(v, t.x, t.y);
+  return silu ? r * fmaf(0.5f, tanh_approx(0.5f * r), 0.5f) : r;
+}
+
 // y = x * scale + shift (+ SiLU) over src[lo, hi) (offsets from sp.begin, a
 // multiple of 8 apart), written to dst at the same offsets. Each thread
 // steps through its 8-vectors kThreads * 8 apart and carries its channel
-// plane forward, so no vector pays a division.
+// plane forward, so no vector pays a division. H*W % 8 == 0.
 __device__ __forceinline__ void normalize(const bf16* src, bf16* dst, const Span& sp,
                                           const float2* table, int lo, int hi, int HW,
                                           bool silu) {
@@ -227,10 +247,7 @@ __device__ __forceinline__ void normalize(const bf16* src, bf16* dst, const Span
     float v[8];
     unpack8(*reinterpret_cast<const uint4*>(src + i), v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float r = fmaf(v[j], t.x, t.y);
-      v[j] = silu ? r * fmaf(0.5f, tanh_approx(0.5f * r), 0.5f) : r;
-    }
+    for (int j = 0; j < 8; ++j) v[j] = affine_silu(v[j], t, silu);
     *reinterpret_cast<uint4*>(dst + i) = pack8(v);
     off += doff;
     c += dc;
@@ -241,9 +258,72 @@ __device__ __forceinline__ void normalize(const bf16* src, bf16* dst, const Span
   }
 }
 
+// Where a piece or chunk of sp.end - sp.begin elements lies in the aligned
+// coordinates of x: src/dst index j holds slab element sp.begin - a + j, so
+// the piece is [a, a + len) with a < 8 and index 0 on a 16-byte boundary;
+// [bh, bt) is its 16-byte-aligned body, [a, bh) its head and [bt, a + len)
+// its tail, each shorter than 8.
+struct Aligned {
+  int a, len, bh, bt;
+  __device__ Aligned(int64_t first, int len_)
+      : a((int)(first & 7)), len(len_), bh(min((a + 7) & ~7, a + len_)),
+        bt(max((a + len_) & ~7, bh)) {}
+};
+
+// The epilogue of any H*W: as normalize, over the piece [al.a, al.a +
+// al.len) of src/dst in aligned coordinates. A vector inside the piece
+// loads and stores 16 bytes and finds each element's channel plane as it
+// steps; the head and tail vectors go element by element.
+__device__ __forceinline__ void normalize_any(const bf16* src, bf16* dst, const Span& sp,
+                                              const Aligned& al, const float2* table,
+                                              int HW, bool silu) {
+  const int first = sp.begin - al.a;  // slab offset of index 0 (may be < 0)
+  const int end = al.a + al.len;
+  for (int v0 = (int)threadIdx.x * 8; v0 < end; v0 += kThreads * 8) {
+    if (v0 >= al.a && v0 + 8 <= end) {
+      const int i = first + v0;
+      int c = i / HW - sp.c_first, off = i % HW;
+      float v[8];
+      unpack8(*reinterpret_cast<const uint4*>(src + v0), v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = affine_silu(v[j], table[c], silu);
+        if (++off == HW) {
+          off = 0;
+          ++c;
+        }
+      }
+      *reinterpret_cast<uint4*>(dst + v0) = pack8(v);
+    } else {
+      for (int j = max(v0, al.a); j < min(v0 + 8, end); ++j) {
+        const float2 t = table[(first + j) / HW - sp.c_first];
+        dst[j] = __float2bfloat16_rn(affine_silu(__bfloat162float(src[j]), t, silu));
+      }
+    }
+  }
+}
+
+// (sum, sum of squares) of the head and tail elements of `al` in src,
+// added into (s, ss); each is read by one thread, which also copies it to
+// keep[j] when keep is given.
+__device__ __forceinline__ void add_edges(const bf16* src, const Aligned& al, float& s,
+                                          float& ss, bf16* keep) {
+  const int t = threadIdx.x, n_head = al.bh - al.a;
+  const int j = t < n_head ? al.a + t : al.bt + (t - n_head);
+  if (t < n_head + (al.a + al.len - al.bt)) {
+    const bf16 raw = src[j];
+    const float v = __bfloat162float(raw);
+    s += v;
+    ss = fmaf(v, v, ss);
+    if (keep) keep[j] = raw;
+  }
+}
+
 // grid (k, N * G), cluster (k, 1, 1): CTA r of a cluster holds slab
 // elements [r * piece, min((r + 1) * piece, slab)) of slab blockIdx.y in
-// dynamic shared memory, followed by its channel table.
+// dynamic shared memory (aligned coordinates unless kAligned: piece + 16
+// elements), followed by its channel table.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     gn_cluster(const bf16* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias, bf16* __restrict__ y, int C, int G,
@@ -260,10 +340,15 @@ __global__ void __launch_bounds__(kThreads)
   const int len = min(piece, slab - begin);
   const Span sp(begin, begin + len, HW);
   const int cbase = (blockIdx.y % G) * cg + sp.c_first;
-  const int64_t base = (int64_t)blockIdx.y * slab + begin;
+  const int64_t first = (int64_t)blockIdx.y * slab + begin;
+  // kAligned: the piece is all body; else its aligned coordinates
+  const Aligned al = kAligned ? Aligned(0, len) : Aligned(first, len);
+  const int64_t base = first - al.a;
   bf16* buf = reinterpret_cast<bf16*>(smem);
-  float2* table = reinterpret_cast<float2*>(smem + (size_t)piece * 2);
-  const int n_sub = (len + sub - 1) / sub;
+  float2* table =
+      reinterpret_cast<float2*>(smem + (size_t)(kAligned ? piece : piece + 16) * 2);
+  const int body = al.bt - al.bh;
+  const int n_sub = (body + sub - 1) / sub;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_sub; ++s) mbar_init(smem_u32(&full[s]), 1);
@@ -272,18 +357,20 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (threadIdx.x == 0) {
     for (int s = 0; s < n_sub; ++s) {
-      const uint32_t bytes = 2u * (uint32_t)min(sub, len - s * sub);
+      const int at = al.bh + s * sub;
+      const uint32_t bytes = 2u * (uint32_t)min(sub, al.bt - at);
       mbar_expect_tx(smem_u32(&full[s]), bytes);
-      bulk_load(smem_u32(buf + s * sub), x + base + s * sub, bytes, smem_u32(&full[s]));
+      bulk_load(smem_u32(buf + at), x + base + at, bytes, smem_u32(&full[s]));
     }
   }
   load_table(table, sp, cbase, w, bias);
 
   float s = 0.f, ss = 0.f;
+  if (!kAligned) add_edges(x + base, al, s, ss, buf);
   for (int q = 0; q < n_sub; ++q) {
     mbar_wait(smem_u32(&full[q]), 0);
-    const int hi = min((q + 1) * sub, len);
-    for (int i = q * sub + (int)threadIdx.x * 8; i < hi; i += kThreads * 8)
+    const int hi = min(al.bh + (q + 1) * sub, al.bt);
+    for (int i = al.bh + q * sub + (int)threadIdx.x * 8; i < hi; i += kThreads * 8)
       add_moments(*reinterpret_cast<const uint4*>(buf + i), s, ss);
   }
   const float2 mine = block_sum2(s, ss);
@@ -307,25 +394,33 @@ __global__ void __launch_bounds__(kThreads)
   if (k > 1) cluster_arrive();  // done reading the peers' pairs
   finish_table(table, sp, stats);
   __syncthreads();
-  normalize(buf, y + base, sp, table, 0, len, HW, silu != 0);
+  if (kAligned)
+    normalize(buf, y + base, sp, table, 0, len, HW, silu != 0);
+  else
+    normalize_any(buf, y + base, sp, al, table, HW, silu != 0);
   if (k > 1) cluster_wait();  // no peer reads this CTA's pair any more
 }
 
 // grid (n_chunks, N * G): partial (sum, sum of squares) of one chunk.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     gn_stats(const bf16* __restrict__ x, float2* __restrict__ partial, int slab,
              int chunk) {
   const int begin = blockIdx.x * chunk;
-  const int end = min(begin + chunk, slab);
-  const bf16* xs = x + (int64_t)blockIdx.y * slab;
+  const int len = min(begin + chunk, slab) - begin;
+  const int64_t first = (int64_t)blockIdx.y * slab + begin;
+  const Aligned al = kAligned ? Aligned(0, len) : Aligned(first, len);
+  const bf16* xs = x + (first - al.a);
   float s = 0.f, ss = 0.f;
-  for (int i = begin + (int)threadIdx.x * 8; i < end; i += kThreads * 8)
+  if (!kAligned) add_edges(xs, al, s, ss, nullptr);
+  for (int i = al.bh + (int)threadIdx.x * 8; i < al.bt; i += kThreads * 8)
     add_moments(*reinterpret_cast<const uint4*>(xs + i), s, ss);
   const float2 tot = block_sum2(s, ss);
   if (threadIdx.x == 0) partial[blockIdx.y * gridDim.x + blockIdx.x] = tot;
 }
 
 // grid (n_chunks, N * G): combine the slab's partials, normalize one chunk.
+template <bool kAligned>
 __global__ void __launch_bounds__(kThreads)
     gn_apply(const bf16* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, bf16* __restrict__ y,
@@ -345,28 +440,35 @@ __global__ void __launch_bounds__(kThreads)
   }
   finish_table(table, sp, moments(block_sum2(s, ss), (float)slab, eps));
   __syncthreads();
-  const int64_t base = (int64_t)blockIdx.y * slab + begin;
-  normalize(x + base, y + base, sp, table, 0, sp.end - begin, HW, silu != 0);
+  const int64_t first = (int64_t)blockIdx.y * slab + begin;
+  if (kAligned) {
+    normalize(x + first, y + first, sp, table, 0, sp.end - begin, HW, silu != 0);
+  } else {
+    const Aligned al(first, sp.end - begin);
+    normalize_any(x + first - al.a, y + first - al.a, sp, al, table, HW, silu != 0);
+  }
 }
 
-// Checks shared by both routes: x is (N, C, HW) with HW % 8 == 0, slabs
-// below 2^31 elements, N * G within the grid's y limit.
+// Checks shared by both routes: x is (N, C, HW), slabs below 2^31
+// elements, N * G within the grid's y limit.
 bool valid_shape(int N, int C, int64_t HW, int G) {
-  return G > 0 && C % G == 0 && HW > 0 && HW % 8 == 0 && N > 0 &&
+  return G > 0 && C % G == 0 && HW > 0 && N > 0 &&
          (int64_t)N * G <= 65535 && (int64_t)(C / G) * HW < (1ll << 31);
 }
 
-// Once: dynamic shared memory up to the block's limit, and clusters of 16
-// (a non-portable size).
+// Once per instantiation: dynamic shared memory up to the block's limit,
+// and clusters of 16 (a non-portable size).
+template <bool kAligned>
 cudaError_t cluster_attributes() {
   static const cudaError_t err = [] {
     cudaFuncAttributes fa;
-    cudaError_t e = cudaFuncGetAttributes(&fa, gn_cluster);
+    cudaError_t e = cudaFuncGetAttributes(&fa, gn_cluster<kAligned>);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gn_cluster, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      e = cudaFuncSetAttribute(gn_cluster<kAligned>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemLimit - (int)fa.sharedSizeBytes);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(gn_cluster,
+      e = cudaFuncSetAttribute(gn_cluster<kAligned>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     return e;
   }();
@@ -397,8 +499,8 @@ bool valid_cluster(int k) { return k == 1 || k == 2 || k == 4 || k == 8 || k == 
 // (cluster, piece, sub, smem) is the wrapper's plan (ops/groupnorm.py
 // plan_groupnorm): `cluster` CTAs of `piece` elements (a multiple of 8)
 // cover each slab, every one non-empty; each piece loads in sub-chunks of
-// `sub` elements; smem holds the piece and C / G table entries. Returns a
-// cudaError_t.
+// `sub` elements; smem holds the piece (16 elements more when HW % 8 != 0)
+// and C / G table entries. Returns a cudaError_t.
 extern "C" int cremage_gn_cluster_bf16(const void* x, const void* w, const void* b,
                                        void* y, int N, int C, int64_t HW, int G,
                                        int cluster, int piece, int sub, int smem,
@@ -406,33 +508,38 @@ extern "C" int cremage_gn_cluster_bf16(const void* x, const void* w, const void*
   if (!valid_shape(N, C, HW, G) || !valid_cluster(cluster) || piece <= 0 ||
       piece % 8 != 0 || sub <= 0 || sub % 8 != 0 || (piece + sub - 1) / sub > kMaxSub)
     return (int)cudaErrorInvalidValue;
+  const bool aligned = HW % 8 == 0;
   const int64_t slab = (int64_t)(C / G) * HW;
   if ((int64_t)(cluster - 1) * piece >= slab || (int64_t)cluster * piece < slab ||
-      (int64_t)smem < 2ll * piece + 8ll * (C / G))
+      (int64_t)smem < 2ll * (piece + (aligned ? 0 : 16)) + 8ll * (C / G))
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cluster_attributes();
+  cudaError_t e = aligned ? cluster_attributes<true>() : cluster_attributes<false>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       cluster_config(cluster, N * G, smem, static_cast<cudaStream_t>(stream), &attr);
   if (cluster == 1) cfg.numAttrs = 0;  // a plain launch
-  e = cudaLaunchKernelEx(&cfg, gn_cluster, static_cast<const bf16*>(x),
-                         static_cast<const float*>(w), static_cast<const float*>(b),
-                         static_cast<bf16*>(y), C, G, (int)HW, piece, sub, eps, silu);
+  e = cudaLaunchKernelEx(&cfg, aligned ? gn_cluster<true> : gn_cluster<false>,
+                         static_cast<const bf16*>(x), static_cast<const float*>(w),
+                         static_cast<const float*>(b), static_cast<bf16*>(y), C, G,
+                         (int)HW, piece, sub, eps, silu);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // How many clusters of `cluster` CTAs with `smem` bytes of dynamic shared
-// memory each can be resident at once (cudaOccupancyMaxActiveClusters),
-// into *active. Returns a cudaError_t.
-extern "C" int cremage_gn_cluster_occupancy(int cluster, int smem, int* active) {
+// memory each can be resident at once (cudaOccupancyMaxActiveClusters) for
+// the instantiation of H*W % 8 == 0 (`aligned`) or the other, into
+// *active. Returns a cudaError_t.
+extern "C" int cremage_gn_cluster_occupancy(int cluster, int smem, int aligned,
+                                            int* active) {
   if (!valid_cluster(cluster) || smem < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cluster_attributes();
+  cudaError_t e = aligned ? cluster_attributes<true>() : cluster_attributes<false>();
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(cluster, 1, smem, nullptr, &attr);
-  return (int)cudaOccupancyMaxActiveClusters(active, gn_cluster, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(
+      active, aligned ? gn_cluster<true> : gn_cluster<false>, &cfg);
 }
 
 // Two passes: as above; partial is fp32 scratch of N * G * n_chunks * 2;
@@ -447,14 +554,15 @@ extern "C" int cremage_gn_two_pass_bf16(const void* x, const void* w, const void
   const int64_t slab = (int64_t)(C / G) * HW;
   if ((int64_t)(n_chunks - 1) * chunk >= slab || (int64_t)n_chunks * chunk < slab)
     return (int)cudaErrorInvalidValue;
+  const bool aligned = HW % 8 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_chunks, N * G);
-  gn_stats<<<grid, kThreads, 0, s>>>(static_cast<const bf16*>(x),
-                                     static_cast<float2*>(partial), (int)slab, chunk);
+  (aligned ? gn_stats<true> : gn_stats<false>)<<<grid, kThreads, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<float2*>(partial), (int)slab, chunk);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t table = sizeof(float2) * (C / G);
-  gn_apply<<<grid, kThreads, table, s>>>(
+  (aligned ? gn_apply<true> : gn_apply<false>)<<<grid, kThreads, table, s>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(w),
       static_cast<const float*>(b), static_cast<bf16*>(y),
       static_cast<const float2*>(partial), C, G, (int)HW, chunk, eps, silu);

@@ -15,7 +15,10 @@
 - The port's modules are named after the checkpoint keys, so loading a
   component is stripping its prefix (`component_state_dict`). Keys that
   belong to no model (the DDPM schedule buffers, `model_ema.*`, CLIP's
-  `position_ids`) are dropped by name (`split_sd15`); any other key raises.
+  `position_ids`) are dropped by name (`split_sd15`, `split_sdxl`); any
+  other key raises. SDXL's OpenCLIP tower stores its attention input
+  projection fused (`attn.in_proj_weight` / `in_proj_bias`, rows [q; k; v]);
+  `openclip_text_subdict` splits it into the port's q/k/v projections.
 """
 from __future__ import annotations
 
@@ -44,7 +47,14 @@ _NAMES = {v: k for k, v in DTYPES.items()}
 PREFIX_UNET = "model.diffusion_model."
 PREFIX_VAE = "first_stage_model."
 PREFIX_CLIP_SD15 = "cond_stage_model.transformer.text_model."
+PREFIX_CLIP_SDXL = "conditioner.embedders.0.transformer.text_model."
+PREFIX_OPENCLIP_SDXL = "conditioner.embedders.1.model."
 PREFIX_CONTROLNET = "control_model."
+# SDXL checkpoint keys of no model of the port besides the SD1.5 ones:
+# the sgm denoiser's sigma table (the port builds its own)
+SDXL_EXTRA_KEYS = frozenset(("denoiser.sigmas",))
+# the OpenCLIP tower's contrastive logit scale and causal-mask buffer
+_OPENCLIP_DROPPED = ("logit_scale", "attn_mask")
 
 # keys of an SD1.5 checkpoint that belong to no model of the port: the
 # LatentDiffusion schedule buffers (the port builds its schedule), the EMA
@@ -228,6 +238,48 @@ def split_sd15(sd: Mapping[str, torch.Tensor],
         raise KeyError(f"{len(unknown)} checkpoint keys belong to no SD1.5 "
                        f"component (first 10): {sorted(unknown)[:10]}")
     return {p: component_state_dict(sd, p) for p in prefixes}
+
+
+def split_sdxl(sd: Mapping[str, torch.Tensor]
+               ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An SDXL base single-file state dict -> {prefix: component dict}, the
+    OpenCLIP tower's in the port's split-q/k/v naming. Keys that belong to
+    no model are dropped by name; any other raises."""
+    prefixes = (PREFIX_UNET, PREFIX_VAE, PREFIX_CLIP_SDXL,
+                PREFIX_OPENCLIP_SDXL)
+    unknown = [k for k in sd if not k.startswith(prefixes)
+               and k not in SCHEDULE_KEYS and k not in SDXL_EXTRA_KEYS
+               and not k.startswith("model_ema.")]
+    if unknown:
+        raise KeyError(f"{len(unknown)} checkpoint keys belong to no SDXL "
+                       f"component (first 10): {sorted(unknown)[:10]}")
+    out = {p: component_state_dict(sd, p) for p in prefixes[:3]}
+    out[PREFIX_OPENCLIP_SDXL] = openclip_text_subdict(sd)
+    return out
+
+
+def openclip_text_subdict(sd: Mapping[str, torch.Tensor],
+                          prefix: str = PREFIX_OPENCLIP_SDXL
+                          ) -> Dict[str, torch.Tensor]:
+    """The OpenCLIP text tower's keys under `prefix`, stripped, with the
+    fused attn.in_proj_{weight,bias} split into q/k/v_proj (row order
+    [q; k; v]); logit_scale, attn_mask and any visual.* keys dropped."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if not k.startswith(prefix):
+            continue
+        k2 = k[len(prefix):]
+        if k2 in _OPENCLIP_DROPPED or k2.startswith("visual."):
+            continue
+        for kind in ("weight", "bias"):
+            if k2.endswith(f"attn.in_proj_{kind}"):
+                base = k2[:-len(f"in_proj_{kind}")]
+                for name, part in zip(("q", "k", "v"), v.chunk(3, dim=0)):
+                    out[f"{base}{name}_proj.{kind}"] = part
+                break
+        else:
+            out[k2] = v
+    return out
 
 
 def vae_state_dict_from_standalone(sd: Mapping[str, torch.Tensor]

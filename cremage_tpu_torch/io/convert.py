@@ -21,6 +21,7 @@ from torch import nn
 
 # rank-2 tensors that are (num, dim) tables, not linear layers
 _NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
+                         "positional_embedding", "text_projection",
                          "concept_embeds", "special_care_embeds")
 
 
@@ -92,3 +93,15 @@ def load_vae(module: nn.Module, params: Mapping) -> nn.Module:
 
 def load_clip(module: nn.Module, params: Mapping) -> nn.Module:
     return load_from_jax(module, params, rename=clip_jax_name)
+
+
+def openclip_jax_name(key: str) -> str:
+    """Normalized port OpenCLIP key -> JAX OpenCLIPTextModel name (the
+    token table is a bare param there)."""
+    return "token_embedding" if key == "token_embedding_weight" else key
+
+
+def load_open_clip(module: nn.Module, params: Mapping) -> nn.Module:
+    """A JAX OpenCLIPTextModel parameter tree into the port's (the
+    positional table and text_projection stay as they are)."""
+    return load_from_jax(module, params, rename=openclip_jax_name)

@@ -16,7 +16,11 @@ checkpoint keys (examples from the reference's canonical list):
       -> UNet output_blocks.5.1.transformer_blocks.0.ff.net.2
   lora_te_text_model_encoder_layers_8_self_attn_v_proj
       -> CLIP encoder.layers.8.self_attn.v_proj
-with the suffixes .lora_down.weight / .lora_up.weight / .alpha.
+  lora_te2_text_model_encoder_layers_8_mlp_fc1
+      -> SDXL's OpenCLIP bigG transformer.resblocks.8.mlp.c_fc
+with the suffixes .lora_down.weight / .lora_up.weight / .alpha. kohya
+exports bigG (te2) under HF CLIP names; an SDXL LoRA's te1 modules go to
+CLIP-L, as in an SD1.5 bundle.
 """
 from __future__ import annotations
 
@@ -73,6 +77,12 @@ _TE_NAMES = {"self_attn_q_proj": "self_attn.q_proj",
              "self_attn_v_proj": "self_attn.v_proj",
              "self_attn_out_proj": "self_attn.out_proj",
              "mlp_fc1": "mlp.fc1", "mlp_fc2": "mlp.fc2"}
+# the same HF names on SDXL's OpenCLIP tower (models/open_clip.py)
+_TE2_NAMES = {"self_attn_q_proj": "attn.q_proj",
+              "self_attn_k_proj": "attn.k_proj",
+              "self_attn_v_proj": "attn.v_proj",
+              "self_attn_out_proj": "attn.out_proj",
+              "mlp_fc1": "mlp.c_fc", "mlp_fc2": "mlp.c_proj"}
 
 
 def _inner_name(block: str, rest: str) -> Optional[str]:
@@ -98,14 +108,15 @@ def _inner_name(block: str, rest: str) -> Optional[str]:
 def kohya_module_to_torch_name(module: str, cfg: UNetConfig
                                ) -> Optional[Tuple[str, str]]:
     """kohya module name -> ("unet" | "te" | "te2", the module's name in
-    the port's UNet or CLIP text model); None for a module the grammar
-    does not map. ("te2", the SDXL second text encoder, has no model in
-    an SD1.5 bundle: the merge counts it as skipped.)"""
+    the port's UNet, CLIP text model or OpenCLIP tower); None for a module
+    the grammar does not map. ("te2", SDXL's second text encoder, has no
+    model in an SD1.5 bundle: the merge counts it as skipped.)"""
     m = _TE_RE.match(module)
     if m:
         te_idx, layer, rest = m.groups()
-        which = "te2" if te_idx == "2" else "te"
-        return which, f"encoder.layers.{layer}.{_TE_NAMES[rest]}"
+        if te_idx == "2":
+            return "te2", f"transformer.resblocks.{layer}.{_TE2_NAMES[rest]}"
+        return "te", f"encoder.layers.{layer}.{_TE_NAMES[rest]}"
     m = _UNET_ATT_RE.match(module)
     if m:
         where, b, a, rest = m.groups()
@@ -153,12 +164,14 @@ def lora_delta(down: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
 
 def merge_lora(unet: nn.Module, text: Optional[nn.Module],
                lora_sd: Mapping[str, torch.Tensor], weight: float,
-               cfg: UNetConfig) -> Tuple[int, int, List[str]]:
-    """Merge one LoRA into the UNet and the CLIP text model in place.
-    -> (merged, skipped, the merged modules' names as "unet:..."/"te:...").
-    The delta is computed on each weight's device."""
+               cfg: UNetConfig, text2: Optional[nn.Module] = None
+               ) -> Tuple[int, int, List[str]]:
+    """Merge one LoRA into the UNet, the CLIP text model and (SDXL) the
+    OpenCLIP tower `text2` in place. -> (merged, skipped, the merged
+    modules' names as "unet:..."/"te:..."/"te2:..."). The delta is
+    computed on each weight's device."""
     merged, skipped, names = 0, 0, []
-    models = {"unet": unet, "te": text}
+    models = {"unet": unet, "te": text, "te2": text2}
     for module, parts in group_lora_modules(lora_sd).items():
         if "down" not in parts or "up" not in parts:
             skipped += 1

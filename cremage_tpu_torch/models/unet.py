@@ -1,7 +1,13 @@
-"""Stable Diffusion UNet (SD1.5) in PyTorch, NCHW, bf16 compute / fp32
-norms — the port of cremage_tpu/models/unet.py, `mode="full"` only.
+"""Stable Diffusion UNet (SD1.5, SDXL base and refiner) in PyTorch, NCHW,
+bf16 compute / fp32 norms — the port of cremage_tpu/models/unet.py,
+`mode="full"` only.
 
-Architecture contract follows the CompVis `UNetModel` (v1-inference.yaml).
+Architecture contract follows the CompVis/sgm `UNetModel`
+(v1-inference.yaml, sd_xl_base.yaml, sd_xl_refiner.yaml). SDXL adds the
+`label_emb` MLP over the vector conditioning `y` (added to the time
+embedding), Linear proj_in/proj_out on tokens
+(`use_linear_in_transformer`), per-level transformer depths and 64-wide
+heads.
 Module names follow the torch checkpoint keys under
 `model.diffusion_model.`, e.g. `input_blocks.1.0.in_layers.0.weight`; the
 Sequential slots that hold no parameters (SiLU, dropout) are Identity
@@ -39,12 +45,35 @@ class UNetConfig:
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)  # per level
     transformer_depth_middle: int = 1
     context_dim: int = 768
+    adm_in_channels: int = 0           # 0 = no vector conditioning
+    use_linear_in_transformer: bool = False
     dtype: torch.dtype = torch.bfloat16
 
 
 def sd15_unet_config(**kw) -> UNetConfig:
     """v1-inference.yaml unet_config."""
     return UNetConfig(**kw)
+
+
+def sdxl_base_unet_config(**kw) -> UNetConfig:
+    """sd_xl_base.yaml network_config."""
+    return UNetConfig(
+        in_channels=4, out_channels=4, model_channels=320,
+        attention_resolutions=(4, 2), channel_mult=(1, 2, 4),
+        num_head_channels=64, num_heads=-1, transformer_depth=(1, 2, 10),
+        transformer_depth_middle=10, context_dim=2048, adm_in_channels=2816,
+        use_linear_in_transformer=True, **kw)
+
+
+def sdxl_refiner_unet_config(**kw) -> UNetConfig:
+    """sd_xl_refiner.yaml network_config (a config only: the refiner's
+    pipeline is not ported)."""
+    return UNetConfig(
+        in_channels=4, out_channels=4, model_channels=384,
+        attention_resolutions=(4, 2), channel_mult=(1, 2, 4, 4),
+        num_head_channels=64, num_heads=-1, transformer_depth=(4, 4, 4, 4),
+        transformer_depth_middle=4, context_dim=1280, adm_in_channels=2560,
+        use_linear_in_transformer=True, **kw)
 
 
 def _heads_for(ch: int, cfg: UNetConfig) -> Tuple[int, int]:
@@ -114,26 +143,38 @@ class BasicTransformerBlock(nn.Module):
 
 
 class SpatialTransformer(nn.Module):
-    """SD1.5 form: 1x1-conv proj_in/proj_out around the token blocks."""
+    """proj_in/proj_out around the token blocks: 1x1 convs (SD1.5), or
+    Linear layers on the tokens (`use_linear`, SDXL)."""
 
     def __init__(self, ch: int, context_dim: int, heads: int, dim_head: int,
-                 depth: int = 1):
+                 depth: int = 1, use_linear: bool = False):
         super().__init__()
+        self.use_linear = use_linear
         self.norm = GroupNorm(ch, 32, eps=1e-6)
-        self.proj_in = Conv2d(ch, ch, 1)
+        proj = (lambda: Linear(ch, ch)) if use_linear else \
+            (lambda: Conv2d(ch, ch, 1))
+        self.proj_in = proj()
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(ch, context_dim, heads, dim_head)
             for _ in range(depth))
-        self.proj_out = Conv2d(ch, ch, 1)
+        self.proj_out = proj()
 
     def forward(self, x, context):
         b, c, h, w = x.shape
-        t = self.proj_in(self.norm(x))
+        t = self.norm(x)
+        if not self.use_linear:
+            t = self.proj_in(t)
         t = t.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
+        if self.use_linear:
+            t = self.proj_in(t)
         for blk in self.transformer_blocks:
             t = blk(t, context)
+        if self.use_linear:
+            t = self.proj_out(t)
         t = t.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
-        return self.proj_out(t) + x
+        if not self.use_linear:
+            t = self.proj_out(t)
+        return t + x
 
 
 class ResBlock(nn.Module):
@@ -173,6 +214,12 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
+def spatial_transformer(cfg: UNetConfig, ch: int, depth: int):
+    heads, dh = _heads_for(ch, cfg)
+    return SpatialTransformer(ch, cfg.context_dim, heads, dh, depth,
+                              cfg.use_linear_in_transformer)
+
+
 def encoder_blocks(cfg: UNetConfig, in_channels: int):
     """The UNet's encoder half, shared with the ControlNet: (time_embed,
     input_blocks, middle_block, the channels of each input block's output,
@@ -191,20 +238,16 @@ def encoder_blocks(cfg: UNetConfig, in_channels: int):
             layers = [ResBlock(ch, ted, mc * mult)]
             ch = mc * mult
             if ds in cfg.attention_resolutions:
-                heads, dh = _heads_for(ch, cfg)
-                layers.append(SpatialTransformer(
-                    ch, cfg.context_dim, heads, dh, depths[level]))
+                layers.append(spatial_transformer(cfg, ch, depths[level]))
             input_blocks.append(nn.ModuleList(layers))
             chans.append(ch)
         if level != n_levels - 1:
             input_blocks.append(nn.ModuleList([Downsample(ch)]))
             chans.append(ch)
             ds *= 2
-    heads, dh = _heads_for(ch, cfg)
     middle_block = nn.ModuleList([
         ResBlock(ch, ted, ch),
-        SpatialTransformer(ch, cfg.context_dim, heads, dh,
-                           cfg.transformer_depth_middle),
+        spatial_transformer(cfg, ch, cfg.transformer_depth_middle),
         ResBlock(ch, ted, ch)])
     return time_embed, input_blocks, middle_block, chans, ds
 
@@ -223,7 +266,8 @@ def run_layers(layers, h, emb, context):
 
 class UNetModel(nn.Module):
     """The denoising UNet: forward(x NCHW, t (B,), context (B, L, D),
-    control=None)."""
+    control=None, y=None); `y` (B, adm_in_channels) is SDXL's vector
+    conditioning."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -234,6 +278,10 @@ class UNetModel(nn.Module):
         n_levels = len(cfg.channel_mult)
         (self.time_embed, self.input_blocks, self.middle_block, chans,
          ds) = encoder_blocks(cfg, cfg.in_channels)
+        if cfg.adm_in_channels:
+            self.label_emb = nn.Sequential(nn.Sequential(
+                Linear(cfg.adm_in_channels, ted), nn.Identity(),
+                Linear(ted, ted)))
         ch = chans[-1]
         self.output_blocks = nn.ModuleList()
         for level in reversed(range(n_levels)):
@@ -242,9 +290,7 @@ class UNetModel(nn.Module):
                 layers = [ResBlock(ch + chans.pop(), ted, out_ch)]
                 ch = out_ch
                 if ds in cfg.attention_resolutions:
-                    heads, dh = _heads_for(ch, cfg)
-                    layers.append(SpatialTransformer(
-                        ch, cfg.context_dim, heads, dh, depths[level]))
+                    layers.append(spatial_transformer(cfg, ch, depths[level]))
                 if level > 0 and i == cfg.num_res_blocks:
                     layers.append(Upsample(ch))
                     ds //= 2
@@ -253,13 +299,19 @@ class UNetModel(nn.Module):
                                  nn.Identity(),
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))
 
-    def forward(self, x, timesteps, context, control=None):
+    def forward(self, x, timesteps, context, control=None, y=None):
         """`control`: (one residual per input block, the middle block's
         residual), added to the skips and the middle output as the JAX
-        UNet adds them."""
+        UNet adds them. `y`: the vector conditioning of a UNet with
+        adm_in_channels, through label_emb into the time embedding."""
         dtype = self.cfg.dtype
         t_emb = timestep_embedding(timesteps, self.cfg.model_channels).to(dtype)
         emb = self.time_embed[2](F.silu(self.time_embed[0](t_emb)))
+        if self.cfg.adm_in_channels:
+            if y is None:
+                raise ValueError("this UNet expects vector conditioning y")
+            lab = self.label_emb[0]
+            emb = emb + lab[2](F.silu(lab[0](y.to(dtype))))
         h = x.to(dtype)
         context = context.to(dtype)
         hs = []

@@ -36,6 +36,11 @@ class VAEConfig:
     dtype: torch.dtype = torch.bfloat16
 
 
+def sdxl_vae_config(**kw) -> VAEConfig:
+    """SDXL's VAE: SD1.5's architecture with scale factor 0.13025."""
+    return VAEConfig(scale_factor=0.13025, **kw)
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, ch: int, out_ch: int):
         super().__init__()

@@ -16,7 +16,9 @@ in bf16 instead.
 `plan_groupnorm` decides from the shape alone how the kernels cover each
 (batch, group) slab: one pass over a slab held in a thread-block
 cluster's shared memory, or, for slabs beyond a 16-CTA cluster, two
-passes with a split reduction.
+passes with a split reduction. Any H*W is taken: where H*W is not a
+multiple of 8 the kernels run their other instantiation, which reads and
+writes the ends of each piece element by element (csrc/groupnorm.cu).
 """
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ class GroupNormPlan:
     sub: int          # cluster route: elements per sub-chunk (one mbarrier)
     smem_bytes: int   # dynamic shared memory per CTA
     slab: int         # elements of one (batch, group) slab
+    aligned: bool = True  # H*W % 8 == 0: slabs and pieces start on 16-byte
+    #                       boundaries and no 8-vector crosses a channel plane
 
     @property
     def cluster(self) -> int:
@@ -82,12 +86,15 @@ def plan_groupnorm(n: int, c: int, hw: int, groups: int,
     (ceil(slab / k) rounded up to 8 elements) fit `target` bytes, all k
     pieces non-empty; failing that the largest such k, if its piece and the
     channel table still fit a CTA's shared memory. Slabs beyond that take
-    the two-pass route. The plan does not depend on n."""
-    if c % groups or hw % 8 or hw <= 0:
+    the two-pass route. Where H*W % 8 != 0 a piece is held in the aligned
+    coordinates of x, 16 elements more. The plan does not depend on n."""
+    if c % groups or hw <= 0:
         raise ValueError(f"group_norm_silu kernel: C={c} must divide into "
-                         f"{groups} groups, H*W={hw} must be a multiple of 8")
+                         f"{groups} groups, H*W={hw} must be positive")
     slab = c // groups * hw
     table = 8 * (c // groups)
+    aligned = hw % 8 == 0
+    pad = 0 if aligned else 16
 
     def piece(k):
         return -(-slab // (8 * k)) * 8
@@ -95,13 +102,13 @@ def plan_groupnorm(n: int, c: int, hw: int, groups: int,
     # every CTA of the cluster holds some of the slab
     sizes = [k for k in CLUSTER_SIZES if (k - 1) * piece(k) < slab]
     k = next((k for k in sizes if 2 * piece(k) <= target), sizes[-1])
-    if 2 * piece(k) + table <= SMEM_LIMIT - STATIC_SMEM_SLACK:
+    if 2 * (piece(k) + pad) + table <= SMEM_LIMIT - STATIC_SMEM_SLACK:
         p = piece(k)
         n_sub = min(MAX_SUB, max(1, -(-2 * p // SUB_BYTES)))
         return GroupNormPlan("cluster", k, p, -(-p // (8 * n_sub)) * 8,
-                             2 * p + table, slab)
+                             2 * (p + pad) + table, slab, aligned)
     n_chunks, chunk = plan_chunks(slab)
-    return GroupNormPlan("two_pass", n_chunks, chunk, 0, table, slab)
+    return GroupNormPlan("two_pass", n_chunks, chunk, 0, table, slab, aligned)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,7 +119,7 @@ def active_clusters(plan: GroupNormPlan) -> int:
 
     active = ctypes.c_int(0)
     check(kernels().cremage_gn_cluster_occupancy(
-        plan.ctas, plan.smem_bytes, ctypes.byref(active)),
+        plan.ctas, plan.smem_bytes, int(plan.aligned), ctypes.byref(active)),
         "group_norm_silu occupancy query")
     if active.value < 1:
         raise RuntimeError(f"group_norm_silu: no cluster of {plan.ctas} CTAs "
@@ -151,9 +158,10 @@ def check_kernel_inputs(x: torch.Tensor, weight: torch.Tensor,
                          "aligned (N, C, H, W) tensor")
     n, c = x.shape[:2]
     hw = math.prod(x.shape[2:])
-    if c % groups or hw % 8 or n * groups > 65535:
+    if c % groups or hw <= 0 or n * groups > 65535:
         raise ValueError(f"group_norm_silu kernel: C={c} must divide into "
-                         f"{groups} groups, H*W={hw} must be a multiple of 8")
+                         f"{groups} groups (N * groups <= 65535), H*W={hw} "
+                         "must be positive")
     for p in (weight, bias):
         if p.dtype != torch.float32 or p.shape != (c,) \
                 or not p.is_contiguous() or p.device != x.device:

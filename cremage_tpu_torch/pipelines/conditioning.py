@@ -55,7 +55,7 @@ class TextEncoder:
         hit = self._encode_cache.get(ck) if cacheable else None
         if hit is not None:
             return hit
-        chunks = generate_weighted_chunks(
+        chunks, _ = generate_weighted_chunks(
             self.tokenizer, self._embed_tokens, compute_prompt_score(prompt),
             ti_fetch=make_ti_fetch(self.embedding_dir, load_embedding))
         outs = []

@@ -40,10 +40,11 @@ TIFetch = Callable[[str], Optional[np.ndarray]]
 def make_ti_fetch(
     embedding_dir: Optional[str],
     load_embedding: Callable[[str], Union[np.ndarray, Dict[str, np.ndarray]]],
+    tower_key: str = "clip_l",
 ) -> TIFetch:
-    """File-based TI lookup (embedding_dir/name; a two-tower dict gives its
-    CLIP-L entry). A name that would leave the directory counts as
-    missing."""
+    """File-based TI lookup (embedding_dir/name; a two-tower SDXL dict
+    gives its `tower_key` entry, "clip_l" or "clip_g"). A name that would
+    leave the directory counts as missing."""
 
     def fetch(name: str) -> Optional[np.ndarray]:
         if embedding_dir is None:
@@ -56,7 +57,7 @@ def make_ti_fetch(
             return None
         emb = load_embedding(path)
         if isinstance(emb, dict):
-            emb = emb.get("clip_l")
+            emb = emb.get(tower_key)
         return None if emb is None else np.asarray(emb, np.float32)
 
     return fetch
@@ -67,8 +68,9 @@ def generate_weighted_chunks(
     embed_fn: EmbedFn,
     word_score_pairs: Sequence[Tuple[str, float]],
     ti_fetch: Optional[TIFetch] = None,
-) -> List[np.ndarray]:
-    """-> list of (77, dim) fp32 chunks."""
+) -> Tuple[List[np.ndarray], List[int]]:
+    """-> (list of (77, dim) fp32 chunks, each chunk's last-EOS index
+    1 + content length, which OpenCLIP's pooling reads)."""
     rows: List[List[np.ndarray]] = [[]]
     i = 0
     cur_len = 0
@@ -112,10 +114,13 @@ def generate_weighted_chunks(
     pad = np.asarray(embed_fn([PAD]), np.float32).reshape(1, -1)
 
     chunks: List[np.ndarray] = []
+    eos_indices: List[int] = []
     for row in rows:
-        pads = np.repeat(pad, CHUNK_CONTENT - sum(e.shape[0] for e in row), axis=0)
+        seq_len = sum(e.shape[0] for e in row)
+        pads = np.repeat(pad, CHUNK_CONTENT - seq_len, axis=0)
         chunks.append(np.concatenate([bos] + row + [pads, eos], axis=0))
-    return chunks
+        eos_indices.append(1 + seq_len)
+    return chunks, eos_indices
 
 
 def pad_conditioning_to_match(

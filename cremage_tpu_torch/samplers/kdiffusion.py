@@ -86,11 +86,15 @@ def _churn(sig: np.ndarray, s_churn: float, s_tmin: float, s_tmax: float):
     return sigma_hat, np.sqrt(np.maximum(sigma_hat**2 - sig[:-1] ** 2, 0.0))
 
 
-def _add_noise(x, noise: NoiseSource, i: int, scale, draw: int = 0):
-    """x + N(0, 1) * scale (scale already includes s_noise); no draw at 0."""
+def _add_noise(x, noise: NoiseSource, i: int, scale, draw: int = 0,
+               s_noise: float = 1.0):
+    """x + N(0, 1) * s_noise * scale; no draw at scale 0."""
     if scale == 0:
         return x
-    return x + noise.step(i, tuple(x.shape), draw) * float(scale)
+    z = noise.step(i, tuple(x.shape), draw)
+    if s_noise != 1.0:
+        z = z * s_noise
+    return x + z * float(scale)
 
 
 def _euler_to_zero(denoise, x, s_last, progress_cb, i):
@@ -119,10 +123,11 @@ def sample_euler(denoise: Denoise, x, sigmas, noise: NoiseSource, *,
 
 
 def sample_euler_ancestral(denoise: Denoise, x, sigmas, noise: NoiseSource, *,
+                           eta: float = 1.0, s_noise: float = 1.0,
                            progress_cb: Progress = None):
     sig = _check_sigmas(sigmas)
     n = len(sig) - 1
-    downs, ups = zip(*[_ancestral_step_np(sig[i], sig[i + 1])
+    downs, ups = zip(*[_ancestral_step_np(sig[i], sig[i + 1], eta)
                        for i in range(n)])
     s_i = _f32(sig[:-1])
     step = _f32(downs) - s_i            # the scan's fp32 (s_down - s_i)
@@ -131,7 +136,7 @@ def sample_euler_ancestral(denoise: Denoise, x, sigmas, noise: NoiseSource, *,
     for i in range(n):
         d = _to_d(x, s_i[i], _den(denoise, x, s_i[i]))
         x = x + d * float(step[i])
-        x = _add_noise(x, noise, i, up[i])
+        x = _add_noise(x, noise, i, up[i], s_noise=s_noise)
         _report(progress_cb, i)
     return x
 
@@ -244,11 +249,13 @@ def sample_lms(denoise: Denoise, x, sigmas, noise: NoiseSource, *,
 
 
 def sample_dpmpp_2s_ancestral(denoise: Denoise, x, sigmas,
-                              noise: NoiseSource, *,
+                              noise: NoiseSource, *, eta: float = 1.0,
+                              s_noise: float = 1.0,
                               progress_cb: Progress = None):
     sig = _check_sigmas(sigmas)
     n = len(sig) - 1
-    downs, ups = map(np.array, zip(*[_ancestral_step_np(sig[i], sig[i + 1])
+    downs, ups = map(np.array, zip(*[_ancestral_step_np(sig[i], sig[i + 1],
+                                                        eta)
                                      for i in range(n)]))
     x = x.float()
     if n > 1:
@@ -263,7 +270,7 @@ def sample_dpmpp_2s_ancestral(denoise: Denoise, x, sigmas,
             x2 = float(a1[i]) * x - float(e1[i]) * den
             den2 = _den(denoise, x2, s_mid[i])
             x = float(a2[i]) * x - float(e2[i]) * den2
-            x = _add_noise(x, noise, i, up[i])
+            x = _add_noise(x, noise, i, up[i], s_noise=s_noise)
             _report(progress_cb, i)
     return _euler_to_zero(denoise, x, sig[-2], progress_cb, n - 1)
 

@@ -42,28 +42,17 @@ def family(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def trace(run) -> dict:
+    """Call `run()` (one request, warmed up) under torch.profiler: -> its
+    wall time, the card's busy time (union of kernel intervals) and idle
+    share, device time per kernel family, the top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from cremage_tpu_torch.core.config import GenerationOptions
-    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
-
-    if not torch.cuda.is_available():
-        print("profile_sd15: CUDA is not available", file=sys.stderr)
-        return 2
-    pipe = SD15Pipeline(build_sd15_bundle("cuda", torch.bfloat16, seed=0),
-                        device="cuda")
-    opts = GenerationOptions(
-        prompt="a photograph of an astronaut riding a horse",
-        negative_prompt="blurry, low quality", H=512, W=512,
-        sampling_steps=STEPS, sampler="Euler A", scale=7.5, seed=0,
-        n_samples=BATCH, safety_check=False, watermark=False)
-    pipe.generate(opts)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.generate(opts)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -85,16 +74,36 @@ def main() -> int:
         by_family[family(e.name)] = by_family.get(family(e.name), 0.0) + d
         by_name[e.name] = by_name.get(e.name, 0.0) + d
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    print(json.dumps({
+    return {
         "card": torch.cuda.get_device_name(0),
-        "steps": STEPS, "batch": BATCH,
         "wall_s": wall, "device_busy_s": busy / 1e6,
         "device_idle_share": 1.0 - busy / 1e6 / wall,
         "kernels": len(kernels),
         "device_s_by_family": {k: v / 1e6 for k, v in
                                sorted(by_family.items(), key=lambda kv: -kv[1])},
         "top_kernels_s": [[n[:120], v / 1e6] for n, v in top],
-    }, indent=1))
+    }
+
+
+def main() -> int:
+    import torch
+
+    from cremage_tpu_torch.core.config import GenerationOptions
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
+
+    if not torch.cuda.is_available():
+        print("profile_sd15: CUDA is not available", file=sys.stderr)
+        return 2
+    pipe = SD15Pipeline(build_sd15_bundle("cuda", torch.bfloat16, seed=0),
+                        device="cuda")
+    opts = GenerationOptions(
+        prompt="a photograph of an astronaut riding a horse",
+        negative_prompt="blurry, low quality", H=512, W=512,
+        sampling_steps=STEPS, sampler="Euler A", scale=7.5, seed=0,
+        n_samples=BATCH, safety_check=False, watermark=False)
+    pipe.generate(opts)
+    print(json.dumps(dict(steps=STEPS, batch=BATCH,
+                          **trace(lambda: pipe.generate(opts))), indent=1))
     return 0
 
 

@@ -13,8 +13,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     """Every module of the port imports without jax or the JAX package, and
     without a package the card's machine lacks (safetensors, yaml, cv2,
     PIL, transformers): counted beyond what a bare `import torch, numpy,
-    scipy` loads. The checkpoint, LoRA, ControlNet and safety modules are
-    among those imported."""
+    scipy` loads. The checkpoint, LoRA, ControlNet and safety modules, and
+    SDXL's, are among those imported."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy, scipy, scipy.fft, torch
@@ -37,7 +37,8 @@ def test_port_imports_no_jax_and_no_jax_package():
         for new in ("io.checkpoint", "io.lora", "io.ti", "pipelines.loader",
                     "prompt.wildcards", "models.controlnet",
                     "models.safety_checker", "services.safety",
-                    "services.watermark", "app.backends"):
+                    "services.watermark", "app.backends",
+                    "models.open_clip", "samplers.edm", "pipelines.sdxl"):
             assert "cremage_tpu_torch." + new in names, new
         print("clean")
     """)
@@ -50,11 +51,13 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_pipeline_without_device_raises_when_cuda_is_absent(monkeypatch):
     from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
 
+    from cremage_tpu_torch.pipelines.sdxl import SDXLPipeline, build_sdxl_bundle
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        SD15Pipeline(bundle=None)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        build_sd15_bundle()
+    for entry in (lambda: SD15Pipeline(bundle=None), build_sd15_bundle,
+                  lambda: SDXLPipeline(bundle=None), build_sdxl_bundle):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
 
 
 def test_port_calls_no_library_attention_or_compile():

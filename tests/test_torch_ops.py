@@ -241,9 +241,11 @@ def test_groupnorm_kernel_input_checks():
     check_gn_inputs(x, w, w, 32)
     with pytest.raises(TypeError, match="bf16"):
         check_gn_inputs(x.float(), w, w, 32)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        odd = torch.zeros(2, 64, 3, 3, dtype=torch.bfloat16)
-        check_gn_inputs(odd, w, w, 32)
+    # any H*W >= 1 (the kernels' other instantiation), none empty
+    check_gn_inputs(torch.zeros(2, 64, 3, 3, dtype=torch.bfloat16), w, w, 32)
+    with pytest.raises(ValueError, match="positive"):
+        empty = torch.zeros(2, 64, 0, 3, dtype=torch.bfloat16)
+        check_gn_inputs(empty, w, w, 32)
     with pytest.raises(ValueError, match="weight and bias"):
         check_gn_inputs(x, w.bfloat16(), w, 32)
 
@@ -275,6 +277,15 @@ NEW_PATH_GN = [(1, 128, 512, 512), (1, 128, 256, 256), (1, 256, 256, 256),
 # edge cases: H*W = 8; a slab not divisible by 8 * k (a short last piece);
 # N * G = 65535, the grid's y limit
 EDGE_GN = [(2, 64, 1, 8), (2, 96, 61, 136), (65535, 1, 1, 64)]
+# H*W not a multiple of 8: SD1.5 at 640^2 (10x10), 576^2 (18x18, 9x9) and
+# SDXL at 832x1216 (26x38, with the output blocks' 2560 and 1920
+# channels); slabs that start off a 16-byte boundary (C/G * H*W % 8 != 0:
+# 640 channels at 9x9, odd slabs of 3 and 5 channels, one of them over a
+# cluster of 4); H*W < 8 (2x3, 1x1); a two-pass slab of 5 odd channels
+ANY_HW_GN = [(8, 1280, 10, 10), (8, 640, 18, 18), (8, 1280, 9, 9),
+             (2, 1280, 26, 38), (2, 2560, 26, 38), (2, 1920, 26, 38),
+             (8, 640, 9, 9), (2, 96, 9, 9), (2, 160, 181, 183),
+             (2, 64, 2, 3), (3, 96, 1, 1), (2, 160, 700, 701)]
 
 
 def _gn_plan(n, c, h, w, **kw):
@@ -310,6 +321,44 @@ def test_groupnorm_plan_fits_a_cta(n, c, h, w):
         smaller = [k for k in GN.CLUSTER_SIZES if k < plan.cluster]
         assert all(2 * (-(-plan.slab // (8 * k)) * 8) > GN.PIECE_TARGET
                    for k in smaller)
+
+
+@pytest.mark.parametrize("n,c,h,w", ANY_HW_GN)
+def test_groupnorm_plan_takes_any_hw(n, c, h, w):
+    """H*W % 8 != 0: the plan of the kernels' other instantiation covers
+    each slab once with pieces of a multiple of 8 elements, and a CTA holds
+    its piece in aligned coordinates (up to 7 elements before and after
+    it) beside the channel table."""
+    plan = _gn_plan(n, c, h, w)
+    assert not plan.aligned and plan.slab == c // 32 * h * w
+    pieces = plan.pieces()
+    assert pieces[0][0] == 0 and pieces[-1][1] == plan.slab
+    assert all(e0 == b1 for (_, e0), (b1, _) in zip(pieces, pieces[1:]))
+    assert all(b < e for b, e in pieces) and plan.piece % 8 == 0
+    table = 8 * (c // 32)
+    if plan.route == "cluster":
+        assert plan.smem_bytes == 2 * (plan.piece + 16) + table
+        assert plan.smem_bytes <= GN.SMEM_LIMIT - GN.STATIC_SMEM_SLACK
+        assert 1 <= -(-plan.piece // plan.sub) <= GN.MAX_SUB
+        # the smallest cluster that fits the target, as for aligned slabs
+        smaller = [k for k in GN.CLUSTER_SIZES if k < plan.cluster]
+        assert all(2 * (-(-plan.slab // (8 * k)) * 8) > GN.PIECE_TARGET
+                   for k in smaller)
+    else:
+        assert plan.smem_bytes == table and plan.piece <= 16384
+    # the slab starts this plan's CTAs see: off 16-byte boundaries where
+    # C/G * H*W % 8 != 0
+    starts = {(i * plan.slab + b) % 8 for i in range(n) for b, _ in pieces}
+    assert (starts != {0}) == bool(plan.slab % 8)
+
+
+def test_groupnorm_any_hw_cases_cover_the_routes():
+    plans = [_gn_plan(n, c, h, w) for n, c, h, w in ANY_HW_GN]
+    assert {p.route for p in plans} == {"cluster", "two_pass"}
+    assert any(p.route == "cluster" and p.cluster > 1 and p.slab % 8
+               for p in plans)                   # misaligned, several CTAs
+    assert any(p.route == "two_pass" and p.slab % 8 for p in plans)
+    assert any(p.slab < 8 for p in plans)       # a piece below 8 elements
 
 
 @pytest.mark.parametrize("n,c,h,w", MAIN_PATH_GN)
@@ -471,6 +520,26 @@ def test_groupnorm_cuda_cases_cover_the_plans():
     short = [plan_groupnorm(n, c, h * w, 32) for n, c, h, w, *_ in GN_CUDA_CASES]
     assert any(p.route == "cluster" and p.cluster > 1 and p.slab % p.piece
                for p in short)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("n,c,h,w", ANY_HW_GN)
+def test_groupnorm_kernel_takes_any_hw(cuda, n, c, h, w, silu):
+    """H*W % 8 != 0 on the card: the kernel, never the plain version or a
+    library call, within one bf16 ulp of the plain version."""
+    rng = np.random.RandomState(6)
+    xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+              for _ in "wb")
+    before = group_norm_silu.launches
+    got = group_norm_silu(xt, wt, bt, 32, 1e-5, silu)
+    torch.cuda.synchronize()
+    assert group_norm_silu.launches == before + 1
+    want = group_norm_silu_reference(xt, wt, bt, 32, 1e-5, silu)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        2.0 ** -7 * max(1.0, float(want.float().abs().max()))
 
 
 @pytest.mark.cuda

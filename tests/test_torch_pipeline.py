@@ -113,6 +113,13 @@ def bundles():
     return jb, tb
 
 
+@pytest.fixture(scope="module")
+def jax_pipe(bundles):
+    """One JAX pipeline for the module: its sampler program, compiled by
+    the first test that runs it, serves the others."""
+    return JPipeline(bundles[0])
+
+
 def jax_noise(seed, img_index, shape, steps):
     """The initial and per-step noise the JAX pipeline draws for a batch
     (sd15.py txt2img_latents, kdiffusion.plan_euler_ancestral)."""
@@ -124,10 +131,10 @@ def jax_noise(seed, img_index, shape, steps):
                               for k in ks]
 
 
-def test_txt2img_matches_jax(bundles):
+def test_txt2img_matches_jax(bundles, jax_pipe):
     jb, tb = bundles
     j_msgs, t_msgs = [], []
-    want = JPipeline(jb).generate(JOptions(**OPTS), status_cb=j_msgs.append)
+    want = jax_pipe.generate(JOptions(**OPTS), status_cb=j_msgs.append)
     init, steps = jax_noise(42, 0, (2, 8, 8, 4), 3)
     got = SD15Pipeline(tb, device="cpu").generate(
         GenerationOptions(**OPTS), status_cb=t_msgs.append,
@@ -144,12 +151,19 @@ def test_txt2img_matches_jax(bundles):
         assert gi.shape == wi.shape == (64, 64, 3)
         assert_img01_close(gi, wi, float_tol=2.0 / 255.0)
         assert gm == wm
+    # JAX posts its step statuses from ordered io_callbacks that reach the
+    # host asynchronously, so under load they can land after the
+    # "decoding" status it posts once the sampler is dispatched (seen once
+    # in 10 runs of the port's tests on 6 workers): its "decoding" is put
+    # last, where the sampler's end puts it
+    j_msgs = ([m for m in j_msgs if m != "decoding"]
+              + [m for m in j_msgs if m == "decoding"])
     assert t_msgs == j_msgs
 
 
-def test_txt2img_latents_match_jax(bundles):
+def test_txt2img_latents_match_jax(bundles, jax_pipe):
     jb, tb = bundles
-    jp, tp = JPipeline(jb), SD15Pipeline(tb, device="cpu")
+    jp, tp = jax_pipe, SD15Pipeline(tb, device="cpu")
     jo, to = JOptions(**OPTS), GenerationOptions(**OPTS)
     c, uc = jp._conditioning(jo, 2)
     want = np.asarray(jp.txt2img_latents(jo, c, uc, key_for_image(42, 0)))
