@@ -37,9 +37,10 @@ is nonzero and no final line is printed:
    is timed apart); each request's launch counts must equal those derived
    from the model code and its sampler's evaluations, and the inpainted
    images keep the unmasked pixels of the input;
-9. samplers: each of the 12 menu samplers runs SAMPLER_STEPS steps
-   through the full-width UNet at 64^2 latents, batch 1 with CFG; its
-   launch counts must equal its evaluations times the UNet's calls;
+9. samplers: each of the 12 menu samplers and the 3 extra ones (PLMS, DPM
+   Solver, LCM) runs SAMPLER_STEPS steps through the full-width UNet at
+   64^2 latents, batch 1 with CFG; its launch counts must equal its
+   evaluations times the UNet's calls;
 10. sd15_full: SD1.5 as users run it, at full width and depth. Seeded
    random fp16 files in the published key layouts go under build/: a
    single-file checkpoint (every model key of the reference's key list,
@@ -71,20 +72,38 @@ is nonzero and no final line is printed:
    1024^2 (strength 0.75) and one txt2img request at 832x1216 (8 steps;
    its lowest UNet level, 38x26, is where H*W % 8 != 0). Checks: every
    weight equals its file's and the LoRA's 10 modules the merge within one
-   bf16 ulp; an unported sampler is refused; the images are finite,
+   bf16 ulp; an unported option (deep_cache) is refused; the images are finite,
    non-constant and of their size; each request's K1 / K2 launches equal
    the module tree's count and the recorded shapes' sum; one full-width
    SDXL UNet eval in bf16 against fp32 through the plain versions, on the
    card;
-12. new paths' shapes: hooks record the shape of every K1 and K2 call of
+12. sdxl_modes: SDXL as users run it, beside sdxl's base files: a refiner
+   in sd_xl_refiner_1.0's layout (UNet, bigG under
+   conditioner.embedders.0.model., its own VAE keys; 6.1 GB of fp16)
+   and a 9-channel inpainting checkpoint in the sgm layout (6.9 GB). The
+   --config server serves, with the base model, its LoRA and the refiner:
+   a warm-up (the load), bench_sdxl's job with the refiner at
+   refiner_strength 0.3 twice (timed), once more with the shape hooks,
+   LCM at 1024^2 (LCM_STEPS steps) and inpainting on the base model
+   (INPAINT_STEPS steps, a centred-square mask), each once timed and once
+   with the hooks; a second --config server whose config names the
+   inpainting model serves inpainting with the 9-channel UNet the same
+   way. Checks: the refiner's and the inpainting model's weights equal
+   their files' (the LoRA leaves the refiner alone); images finite,
+   non-constant, of their size, the unmasked pixels kept; each request's
+   K1 / K2 launches equal the module tree's count (the refiner's 88 / 56
+   per evaluation) and the recorded shapes' sum; the refiner UNet in bf16
+   against fp32 through the plain versions, on the card;
+13. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
-   sd15_full and of sdxl's requests (the recorded calls must add up to
-   the launch counts), and the same checks as 4 and 5 run at every shape
-   the main path's rows do not hold (the safety checker's d = 64 at batch
-   4 and 1, SDXL's d = 64 at 10 and 20 heads among them), and at K2's
-   H*W % 8 != 0 cases (K2_ANY_HW); each row lists the paths that run its
-   shape with their calls per request;
-13. the kernels line (per-request totals over the main path's shapes, as
+   sd15_full and of sdxl's and sdxl_modes' requests (the recorded calls
+   must add up to the launch counts), and the same checks as 4 and 5 run
+   at every shape the main path's rows do not hold (the safety checker's
+   d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
+   refiner's at 12 and 24 among them), and at K2's H*W % 8 != 0 cases
+   (K2_ANY_HW); each row lists the paths that run its shape with their
+   calls per request;
+14. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -120,8 +139,8 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # 1 instead of using up the call. The K1 limit starts with the shapes
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
-                serving=300, modes=300, samplers=240, sd15_full=480,
-                sdxl=600, new_shapes=480)
+                serving=300, modes=300, samplers=300, sd15_full=480,
+                sdxl=600, sdxl_modes=720, new_shapes=480)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -530,15 +549,17 @@ def kernel_calls(bundle, evals: int, encodes: int, decodes: int):
             + decodes * count(vae.decoder, GroupNorm))
 
 
-# UNet evaluations of each menu sampler over n steps: the two-stage ones
+# UNet evaluations of each sampler over n steps: the two-stage ones
 # evaluate twice a step but at the last (plain Euler to sigma 0); DDIM
-# runs one step per timestep of range(0, 1000, 1000 // n)
+# runs one step per timestep of range(0, 1000, 1000 // n), PLMS those and
+# one more (its first step's trial evaluation); DPM Solver's last
+# transition and LCM's steps take one evaluation each
 TWO_STAGE = ("Heun", "DPM2", "DPM2 A", "DPM++ 2S A", "DPM++ SDE")
 
 
 def sampler_evals(name: str, n: int) -> int:
-    if name == "DDIM":
-        return len(range(0, 1000, 1000 // n))
+    if name in ("DDIM", "PLMS"):
+        return len(range(0, 1000, 1000 // n)) + (name == "PLMS")
     return 2 * n - 1 if name in TWO_STAGE else n
 
 
@@ -808,19 +829,21 @@ def modes(bundle, inpaint_bundle, dev, card, res=RES, steps=MODE_STEPS):
 
 
 def samplers(bundle, dev, card, res=RES, steps=SAMPLER_STEPS):
-    """Each menu sampler for `steps` steps through the UNet at batch 1
-    with CFG; its latents finite, its launches its evaluations' worth.
-    -> (rows, (K1 shapes, K2 shapes)), each a shape -> calls over the 12
-    runs."""
+    """Each menu sampler and each extra one for `steps` steps through the
+    UNet at batch 1 with CFG; its latents finite, its launches its
+    evaluations' worth. -> (rows, (K1 shapes, K2 shapes)), each a shape ->
+    calls over the 15 runs."""
     import torch
 
     from cremage_tpu_torch.core.config import GenerationOptions
     from cremage_tpu_torch.core.rng import GeneratorNoise
-    from cremage_tpu_torch.pipelines.sd15 import SAMPLER_MENU, SD15Pipeline
+    from cremage_tpu_torch.pipelines.sd15 import (
+        EXTRA_SAMPLERS, SAMPLER_MENU, SD15Pipeline,
+    )
 
     pipe = SD15Pipeline(bundle, device=dev)
     rows, attn, gn = [], {}, {}
-    for i, name in enumerate(SAMPLER_MENU):
+    for i, name in enumerate(SAMPLER_MENU + EXTRA_SAMPLERS):
         opts = GenerationOptions(prompt=PROMPT, negative_prompt=NEGATIVE,
                                  H=res, W=res, sampling_steps=steps,
                                  sampler=name, scale=7.5, n_samples=1,
@@ -1218,19 +1241,22 @@ SDXL_LORA = SDXL_LORA_CONV + (
 
 
 def sdxl_configs():
-    """The published SDXL base widths and depths, in bf16."""
+    """The published SDXL base and refiner widths and depths, in bf16."""
     import torch
 
     from cremage_tpu_torch.models.clip import CLIPTextConfig
     from cremage_tpu_torch.models.open_clip import openclip_bigg_config
-    from cremage_tpu_torch.models.unet import sdxl_base_unet_config
+    from cremage_tpu_torch.models.unet import (
+        sdxl_base_unet_config, sdxl_refiner_unet_config,
+    )
     from cremage_tpu_torch.models.vae import sdxl_vae_config
 
     bf16 = torch.bfloat16
     return dict(unet=sdxl_base_unet_config(dtype=bf16),
                 clip=CLIPTextConfig(dtype=bf16),
                 openclip=openclip_bigg_config(dtype=bf16),
-                vae=sdxl_vae_config(dtype=bf16))
+                vae=sdxl_vae_config(dtype=bf16),
+                refiner=sdxl_refiner_unet_config(dtype=bf16))
 
 
 def fused_openclip(sd):
@@ -1342,27 +1368,27 @@ def plain_kernels():
         FA.flash_attention, layers.group_norm_silu = saved
 
 
-def check_unet_sdxl(bundle, dev):
-    """The full-width SDXL UNet at a 1024^2 latent in bf16 through the
-    kernels against the same weights in fp32 through the plain versions,
-    both on the card."""
+def check_unet_sdxl(unet, dev, phase="sdxl_unet_full_width"):
+    """A full-width SDXL UNet (the base's or the refiner's) at a 1024^2
+    latent in bf16 through the kernels against the same weights in fp32
+    through the plain versions, both on the card."""
     import torch
 
     from cremage_tpu_torch.models.unet import UNetModel
 
+    cfg = unet.cfg
     with torch.device("meta"):
-        ref = UNetModel(dataclasses.replace(bundle.unet.cfg,
-                                            dtype=torch.float32))
+        ref = UNetModel(dataclasses.replace(cfg, dtype=torch.float32))
     ref.load_state_dict({k: v.float() for k, v in
-                         bundle.unet.state_dict().items()}, assign=True)
+                         unet.state_dict().items()}, assign=True)
     g = torch.Generator(device=dev).manual_seed(26)
     lat = SDXL_RES // 8
     x = torch.randn(1, 4, lat, lat, device=dev, generator=g)
     t = torch.tensor([500.0], device=dev)
-    ctx = torch.randn(1, 77, 2048, device=dev, generator=g)
-    y = torch.randn(1, 2816, device=dev, generator=g)
+    ctx = torch.randn(1, 77, cfg.context_dim, device=dev, generator=g)
+    y = torch.randn(1, cfg.adm_in_channels, device=dev, generator=g)
     with torch.no_grad():
-        got = bundle.unet(x, t, ctx, y=y).float()
+        got = unet(x, t, ctx, y=y).float()
         with plain_kernels():
             want = ref.eval()(x, t, ctx, y=y)
     rel = float((got - want).abs().max() / want.abs().max())
@@ -1370,20 +1396,33 @@ def check_unet_sdxl(bundle, dev):
     # bf16 rounds each layer's output to 2^-9 relative and the errors add
     # up along the residual stream, as for SD1.5's UNet (unet_full_width)
     tol = 5e-2
-    emit(dict(phase="sdxl_unet_full_width", shape=[1, 4, lat, lat],
+    emit(dict(phase=phase, shape=[1, 4, lat, lat],
               max_rel_err=rel, rel_l2_err=rel_l2, tol=tol,
               finite=bool(torch.isfinite(got).all())))
     del ref, want
     torch.cuda.empty_cache()
     if not (torch.isfinite(got).all() and rel <= tol):
-        raise AssertionError(f"SDXL UNet bf16 vs fp32: max relative error "
-                             f"{rel} > {tol}")
+        raise AssertionError(f"{phase}: max relative error {rel} > {tol}")
+
+
+def sdxl_job(client, params, mode="text_to_image", record=()):
+    """One SDXL job through `client`, with the shape hooks on the models
+    of `record` if any: -> (seconds, (K1, K2) launches, images, (K1
+    shapes, K2 shapes) or None)."""
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        rec = stack.enter_context(recording(*record)) if record else None
+        t1 = time.perf_counter()
+        client.generate(mode, params, "SDXL")
+        msgs = client.drain(1)
+        wall = time.perf_counter() - t1
+    return wall, read_counts(), served_images(msgs), rec and rec[:2]
 
 
 def sdxl(dev, card, root: Path, res=SDXL_RES, steps=SDXL_STEPS,
          tall=SDXL_TALL, tall_steps=SDXL_TALL_STEPS, check_unet=True):
     """The phase sdxl (see the module docstring). -> (rows, {path: (K1
-    shapes, K2 shapes)}, launches of the timed requests)."""
+    shapes, K2 shapes)}, launches of the timed requests, the files)."""
     import numpy as np
     import torch
 
@@ -1413,23 +1452,17 @@ def sdxl(dev, card, root: Path, res=SDXL_RES, steps=SDXL_STEPS,
     def run(name, params, mode="text_to_image", record=False):
         """One job: -> (seconds, (K1, K2) launches, images, finite
         decodes)."""
-        pipe = srv.worker._backends["SDXL"].resident.instance \
-            if "SDXL" in srv.worker._backends else None
         finite.clear()
-        reset_counts()
-        with contextlib.ExitStack() as stack:
-            if record:
-                attn, gn, _ = stack.enter_context(recording(pipe.bundle))
-                shapes[name] = (attn, gn)
-            t1 = time.perf_counter()
-            client.generate(mode, params, "SDXL")
-            msgs = client.drain(1)
-            wall = time.perf_counter() - t1
-        return wall, read_counts(), served_images(msgs), list(finite)
+        wall, counts, images, rec = sdxl_job(client, params, mode, (
+            srv.worker._backends["SDXL"].resident.instance.bundle,)
+            if record else ())
+        if record:
+            shapes[name] = rec
+        return wall, counts, images, list(finite)
 
     try:
-        refused = expect_refused(client, dict(job, sampler="LCM"),
-                                 "an unported sampler", "SDXL")
+        refused = expect_refused(client, dict(job, deep_cache=3),
+                                 "an unported option", "SDXL")
         # the first run loads the files, then pays its shapes' first-call
         # set-up (cuDNN, cuBLAS); 2 steps
         first_s = run("warm-up", dict(job, sampling_steps=2, seed=1))[0]
@@ -1493,7 +1526,7 @@ def sdxl(dev, card, root: Path, res=SDXL_RES, steps=SDXL_STEPS,
     if any("<embedding:astro_xl.pt>" not in m["prompt"] for _, m in images):
         raise AssertionError("sdxl: generation_data of another job")
     if "NotImplementedError" not in (refused or ""):
-        raise AssertionError(f"sdxl: LCM not refused: {refused}")
+        raise AssertionError(f"sdxl: deep_cache not refused: {refused}")
     if tuple(launches) != tuple(want):
         raise AssertionError(f"sdxl: kernel launches {launches} != derived "
                              f"{want}")
@@ -1520,7 +1553,269 @@ def sdxl(dev, card, root: Path, res=SDXL_RES, steps=SDXL_STEPS,
                                  f" {want}, recorded {r['recorded_calls']}")
         rows.append(r)
     if check_unet:
-        check_unet_sdxl(bundle, dev)
+        check_unet_sdxl(bundle.unet, dev)
+    return rows, shapes, launches, paths
+
+
+# sdxl_modes: the refiner at bench_sdxl's job, inpainting and LCM at 1024^2
+SDXL_REFINER_STRENGTH, SDXL_INPAINT_STEPS, SDXL_LCM_STEPS = 0.3, 8, 4
+
+
+def write_sdxl_modes_files(root: Path, dev, cfgs: dict, base: dict):
+    """Seeded random fp16 files beside sdxl's (`base`, its paths): a
+    refiner in sd_xl_refiner_1.0's layout (UNet, bigG under
+    conditioner.embedders.0.model. with its attention input projection
+    fused and its logit_scale, and a VAE of its own, which the pipeline
+    never reads), a 9-channel inpainting checkpoint in the sgm layout and a
+    config.yaml naming it beside the base model. -> (paths, truth), truth
+    keyed by the groups check_groups holds."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.models.clip import CLIPTextModel
+    from cremage_tpu_torch.models.open_clip import OpenCLIPTextModel
+    from cremage_tpu_torch.models.unet import UNetModel
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    def host(sd):
+        return {k: v.half().cpu() for k, v in sd.items()}
+
+    paths = {k: root / n for k, n in (
+        ("refiner", "sdxl_refiner.safetensors"),
+        ("inpaint", "sdxl_inpaint.safetensors"),
+        ("config_inpaint", "config_inpaint.yaml"))}
+    truth = {"lora": {},
+             "refiner_unet": host(seeded_state(UNetModel, cfgs["refiner"],
+                                               dev, 30)),
+             "refiner_openclip": host(seeded_state(
+                 OpenCLIPTextModel, cfgs["openclip"], dev, 31))}
+    ckpt = {}
+    for prefix, sd in (
+            (CK.PREFIX_UNET, truth["refiner_unet"]),
+            (CK.PREFIX_OPENCLIP_REFINER,
+             fused_openclip(truth["refiner_openclip"])),
+            (CK.PREFIX_VAE, host(seeded_state(AutoencoderKL, cfgs["vae"],
+                                              dev, 32)))):
+        ckpt.update({prefix + k: v for k, v in sd.items()})
+    ckpt[CK.PREFIX_OPENCLIP_REFINER + "logit_scale"] = torch.tensor(4.6052)
+    CK.save_safetensors(str(paths["refiner"]), ckpt)
+    ckpt = {}
+    inpaint_cfg = dataclasses.replace(cfgs["unet"], in_channels=9)
+    for (group, cls, cfg, seed), prefix in zip(
+            (("inpaint_unet", UNetModel, inpaint_cfg, 33),
+             ("inpaint_vae", AutoencoderKL, cfgs["vae"], 34),
+             ("inpaint_clip", CLIPTextModel, cfgs["clip"], 35),
+             ("inpaint_openclip", OpenCLIPTextModel, cfgs["openclip"], 36)),
+            (CK.PREFIX_UNET, CK.PREFIX_VAE, CK.PREFIX_CLIP_SDXL,
+             CK.PREFIX_OPENCLIP_SDXL)):
+        truth[group] = host(seeded_state(cls, cfg, dev, seed))
+        sd = truth[group]
+        if cls is OpenCLIPTextModel:
+            sd = fused_openclip(sd)
+        ckpt.update({prefix + k: v for k, v in sd.items()})
+    ckpt[CK.PREFIX_CLIP_SDXL + CK.POSITION_IDS] = torch.arange(77)[None]
+    ckpt[CK.PREFIX_OPENCLIP_SDXL + "logit_scale"] = torch.tensor(4.6052)
+    CK.save_safetensors(str(paths["inpaint"]), ckpt)
+    del ckpt
+    paths["config_inpaint"].write_text(
+        Path(base["config"]).read_text()
+        + f"sdxl_ldm_inpaint_model: '{paths['inpaint'].name}'\n")
+    return {k: str(v) for k, v in paths.items()}, truth
+
+
+def sdxl_modes(dev, card, root: Path, base: dict, res=SDXL_RES,
+               steps=SDXL_STEPS, inpaint_steps=SDXL_INPAINT_STEPS,
+               lcm_steps=SDXL_LCM_STEPS, check_unet=True):
+    """The phase sdxl_modes (see the module docstring), beside sdxl's files
+    `base`. -> (rows, {path: (K1 shapes, K2 shapes)}, launches of the timed
+    refiner requests)."""
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.io.png import encode_png
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.unet import CrossAttention
+
+    cfgs = sdxl_configs()
+    t0 = time.perf_counter()
+    paths, truth = write_sdxl_modes_files(root, dev, cfgs, base)
+    rows = [dict(phase="sdxl_modes_files", seconds=time.perf_counter() - t0,
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()})]
+    emit(rows[0])
+    init, mask = test_image(res)
+    # bench_sdxl's job with sdxl's LoRA and the refiner loaded (at strength
+    # 0 a job runs no refiner pass: LCM and inpainting keep the resident
+    # bundle)
+    job = {"prompt": SDXL_PROMPT, "negative_prompt": NEGATIVE, "H": res,
+           "W": res, "sampling_steps": steps, "sampler": "EulerEDMSampler",
+           "discretization": "LegacyDDPMDiscretization", "scale": SDXL_CFG,
+           "n_samples": SDXL_BATCH, "n_iter": 1, "safety_check": False,
+           "watermark": False, "lora_models": base["lora"],
+           "lora_weights": str(LORA_WEIGHT), "refiner_ckpt": paths["refiner"],
+           "refiner_strength": 0.0}
+    refine = dict(refiner_strength=SDXL_REFINER_STRENGTH)
+    t_refine = max(1, int(SDXL_REFINER_STRENGTH * steps))
+    t_inpaint = max(1, int(STRENGTH * inpaint_steps))
+    finite, shapes, runs = [], {}, {}
+
+    def serve(config):
+        srv = build_server(["--config", config, "--port", "0"])
+        srv.start()
+        client = Client(f"http://127.0.0.1:{srv.port}")
+        up = {k: client.call("/v1/upload", {"image": base64.b64encode(
+            encode_png(a)).decode()})["path"]
+            for k, a in (("init_img", init), ("mask_img", mask))}
+        return srv, client, up
+
+    def resident(srv):
+        return srv.worker._backends["SDXL"].resident.instance.bundle
+
+    def timed_and_hooked(client, name, params, mode, bundle, counts):
+        """The request once timed, once with the shape hooks."""
+        sec = sdxl_job(client, params, mode)[0]
+        finite.clear()
+        run = sdxl_job(client, dict(params, seed=params["seed"] + 1), mode,
+                       (bundle, bundle.refiner_unet) if bundle.refiner_unet
+                       is not None else (bundle,))
+        shapes[name] = run[3]
+        runs[name] = (sec,) + run[1:3] + (list(finite), mode, counts)
+
+    srv, client, up = serve(base["config"])
+    try:
+        # the first run loads the base model, its LoRA and the refiner
+        first_s = sdxl_job(client, dict(job, sampling_steps=2, seed=1,
+                                        **refine))[0]
+        bundle = resident(srv)
+        hook = bundle.vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        finite.clear()
+        reset_counts()
+        t1 = time.perf_counter()
+        for r in range(SDXL_REQUESTS):
+            client.generate("text_to_image", dict(job, seed=30 + r, **refine),
+                            "SDXL")
+        images = served_images(client.drain(SDXL_REQUESTS))
+        wall = time.perf_counter() - t1
+        launches = read_counts()
+        decodes = list(finite)
+        finite.clear()
+        run = sdxl_job(client, dict(job, seed=32, **refine), record=(
+            bundle, bundle.refiner_unet))
+        shapes["sdxl refiner"] = run[3]
+        runs["sdxl refiner"] = (wall / SDXL_REQUESTS,) + run[1:3] + (
+            list(finite), "text_to_image", (steps, t_refine, 0, 1))
+        timed_and_hooked(client, "sdxl LCM",
+                         dict(job, seed=40, sampler="LCM",
+                              sampling_steps=lcm_steps),
+                         "text_to_image", bundle, (lcm_steps, 0, 0, 1))
+        timed_and_hooked(client, "sdxl inpainting base",
+                         dict(job, seed=50, sampling_steps=inpaint_steps,
+                              strength=STRENGTH, **up),
+                         "inpainting", bundle, (t_inpaint, 0, 1, 1))
+        hook.remove()
+    finally:
+        srv.stop()
+    # the 9-channel inpainting model, from the config that names it
+    srv, client, up = serve(paths["config_inpaint"])
+    try:
+        ip9 = {k: v for k, v in job.items()
+               if k not in ("lora_models", "lora_weights", "refiner_ckpt")}
+        ip9.update(seed=60, sampling_steps=inpaint_steps, **up)
+        first9_s = sdxl_job(client, ip9, "inpainting")[0]   # the load
+        bundle9 = resident(srv)
+        hook = bundle9.vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        timed_and_hooked(client, "sdxl inpainting 9-channel",
+                         dict(ip9, seed=61), "inpainting", bundle9,
+                         (inpaint_steps, 0, 1, 1))
+        hook.remove()
+    finally:
+        srv.stop()
+
+    weights = [check_groups("sdxl_refiner_weights", {
+        "refiner_unet": bundle.refiner_unet,
+        "refiner_openclip": bundle.refiner_conditioner.open_clip}, truth, {}),
+        check_groups("sdxl_inpaint_weights", {
+            "inpaint_unet": bundle9.unet, "inpaint_vae": bundle9.vae,
+            "inpaint_clip": bundle9.conditioner.clip_l,
+            "inpaint_openclip": bundle9.conditioner.open_clip}, truth, {})]
+    for w in weights:
+        emit(w)
+    del truth
+    per_eval = (count(bundle.refiner_unet, CrossAttention),
+                count(bundle.refiner_unet, GroupNorm))
+
+    def derived(b, evals, r_evals, enc, dec):
+        k1, k2 = kernel_calls(b, evals, enc, dec)
+        return k1 + r_evals * per_eval[0], k2 + r_evals * per_eval[1]
+
+    want = [SDXL_REQUESTS * k for k in derived(bundle, steps, t_refine, 0, 1)]
+    loads = {k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9) / 1e9)
+             for b in (bundle, bundle9)
+             for k, v in b.load_report["files"].items()}
+    pixel_std = [float(np.std(p.astype(np.float32))) for p, _ in images]
+    row = dict(phase="sdxl_modes", card=card, steps=steps, batch=SDXL_BATCH,
+               sampler=job["sampler"], cfg=SDXL_CFG,
+               refiner_strength=SDXL_REFINER_STRENGTH,
+               refiner_steps=t_refine, requests=SDXL_REQUESTS, seconds=wall,
+               seconds_per_request=wall / SDXL_REQUESTS,
+               images_per_s=len(images) / wall, first_run_seconds=first_s,
+               inpaint_first_run_seconds=first9_s, load=loads,
+               lora=bundle.load_report["loras"],
+               refiner_calls_per_eval=list(per_eval),
+               images=[list(p.shape) for p, _ in images], pixel_std=pixel_std,
+               decodes_finite=decodes,
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    if len(images) != SDXL_REQUESTS * SDXL_BATCH or any(
+            p.shape != (res, res, 3) for p, _ in images) or \
+            decodes != [True] * SDXL_REQUESTS or min(pixel_std) <= 0.0:
+        raise AssertionError(f"sdxl_modes: images {row['images']}, finite "
+                             f"decodes {decodes}, pixel std {pixel_std}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"sdxl_modes: refiner launches {launches} != "
+                             f"derived {want}")
+    rows += weights + [row]
+    keep = mask[..., 0] == 0
+    for name, (sec, (k1, k2), imgs, fin, mode, counts) in runs.items():
+        attn, gn = shapes[name]
+        b = bundle9 if "9-channel" in name else bundle
+        want = derived(b, *counts)
+        kept = None
+        if mode == "inpainting":      # the unmasked pixels, up to PNG rounding
+            kept = max(int(np.abs(p[keep].astype(int)
+                                  - init[keep].astype(int)).max())
+                       for p, _ in imgs)
+        r = dict(phase="sdxl_modes_request", request=name, card=card,
+                 seconds=sec, unet_evals=counts[0], refiner_evals=counts[1],
+                 images=[list(p.shape) for p, _ in imgs], decodes_finite=fin,
+                 pixel_std=[float(np.std(p.astype(np.float32)))
+                            for p, _ in imgs],
+                 modes=[m["mode"] for _, m in imgs],
+                 unmasked_max_diff=kept,
+                 flash_attention_launches=k1, group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0],
+                 expected_group_norm_silu=want[1],
+                 recorded_calls=[sum(attn.values()), sum(gn.values())])
+        emit(r)
+        if len(imgs) != 1 or imgs[0][0].shape != (res, res, 3) or \
+                min(r["pixel_std"]) <= 0.0 or fin != [True] or \
+                r["modes"] != [mode]:
+            raise AssertionError(f"{name}: images {r['images']}, finite "
+                                 f"{fin}, modes {r['modes']}")
+        if kept is not None and kept > 1:
+            raise AssertionError(f"{name}: unmasked pixels moved by {kept}")
+        if not (k1, k2) == want == tuple(r["recorded_calls"]):
+            raise AssertionError(f"{name}: kernel launches {(k1, k2)}, derived"
+                                 f" {want}, recorded {r['recorded_calls']}")
+        rows.append(r)
+    if check_unet:
+        check_unet_sdxl(bundle.refiner_unet, dev,
+                        "sdxl_refiner_unet_full_width")
     return rows, shapes, launches
 
 
@@ -1644,10 +1939,15 @@ def main() -> int:
     watchdog("sdxl")
     sdxl_root = REPO / "build" / "sdxl"
     try:
-        _, sdxl_paths, sdxl_launches = sdxl(dev, card, sdxl_root)
+        _, sdxl_paths, sdxl_launches, sdxl_files = sdxl(dev, card, sdxl_root)
+        paths.update(sdxl_paths)
+        torch.cuda.empty_cache()
+        watchdog("sdxl_modes")
+        _, xl_mode_paths, xl_mode_launches = sdxl_modes(dev, card, sdxl_root,
+                                                        sdxl_files)
     finally:
         shutil.rmtree(sdxl_root, ignore_errors=True)
-    paths.update(sdxl_paths)
+    paths.update(xl_mode_paths)
     paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
     torch.cuda.empty_cache()
     watchdog("new_shapes")
@@ -1664,7 +1964,8 @@ def main() -> int:
         return {"modes": sum(r[key] for r in mode_rows),
                 "samplers": sum(r[key] for r in sampler_rows),
                 "sd15_full": full_launches[key.startswith("group")],
-                "sdxl": sdxl_launches[key.startswith("group")]}
+                "sdxl": sdxl_launches[key.startswith("group")],
+                "sdxl_modes": xl_mode_launches[key.startswith("group")]}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

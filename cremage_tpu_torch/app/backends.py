@@ -11,13 +11,14 @@ needs another one replaces it. Images named by `init_img`, `mask_img` and
 face fix and the speed features are not ported yet (the pipeline refuses
 them).
 
-`sdxl_factory(prefs)` is the factory of the "SDXL" model type: the base
-checkpoint from `opts.ckpt` or sdxl_ldm_model_path / sdxl_ldm_model, with
-the job's standalone VAE, LoRAs (UNet, te1, te2) and TI directory (the
+`sdxl_factory(prefs)` is the factory of the "SDXL" model type: the
+checkpoint from `opts.ckpt` or sdxl_ldm_model_path / sdxl_ldm_model (for
+mode "inpainting" with sdxl_ldm_inpaint_model set, that 9-channel model;
+without it the base model inpaints), with the job's standalone VAE,
+refiner (`refiner_ckpt`), LoRAs (UNet, te1, te2) and TI directory (the
 job's, else sdxl_embedding_path). Pass both factories one
-`ResidentInstance` and one model of either family stays resident. The
-refiner, inpainting, 8-bit storage and auto face fix are not ported yet
-(the pipeline refuses them).
+`ResidentInstance` and one model of either family stays resident. 8-bit
+storage and auto face fix are not ported yet (the pipeline refuses them).
 """
 from __future__ import annotations
 
@@ -77,16 +78,21 @@ def sdxl_factory(prefs: Preferences, device=None,
     resident = resident or ResidentInstance()
 
     def pipe_for(opts: GenerationOptions):
-        ckpt = opts.ckpt or _model_path(prefs, "sdxl_ldm_model_path",
-                                        "sdxl_ldm_model")
+        inpaint = (opts.mode == MODE_INPAINTING
+                   and prefs.sdxl_ldm_inpaint_model not in ("", "None"))
+        ckpt = opts.ckpt or _model_path(
+            prefs, "sdxl_ldm_model_path",
+            "sdxl_ldm_inpaint_model" if inpaint else "sdxl_ldm_model")
         loras = parse_lora_option_string(opts.lora_models, opts.lora_weights)
         embedding_dir = (opts.embedding_path or prefs.sdxl_embedding_path
                          or None)
-        key = ("sdxl", ckpt, opts.vae_ckpt or None, tuple(loras),
-               embedding_dir)
+        refiner = opts.refiner_ckpt or None
+        key = ("sdxl", ckpt, opts.vae_ckpt or None, refiner, tuple(loras),
+               embedding_dir, inpaint)
         return resident.get(key, lambda: SDXLPipeline(load_sdxl_bundle(
-            ckpt, vae_ckpt=opts.vae_ckpt or None, loras=loras,
-            embedding_dir=embedding_dir, device=device), device=device))
+            ckpt, vae_ckpt=opts.vae_ckpt or None, refiner_ckpt=refiner,
+            loras=loras, embedding_dir=embedding_dir, inpainting=inpaint,
+            device=device), device=device))
 
     def factory():
         def generate(params, status_cb, result_cb):

@@ -13,8 +13,9 @@ Run `python -m cremage_tpu_torch.app.server --config config.yaml --port N`
 to serve SD1.5 and SDXL on the GPU from the checkpoint files that the
 config (the JAX package's config.yaml: ldm_model_path / ldm_model,
 ldm_inpaint_model, embedding_path; sdxl_ldm_model_path / sdxl_ldm_model,
-sdxl_embedding_path) and each job (ckpt, vae_ckpt, lora_models,
-control_net) name (app/backends.py); one model of either family stays
+sdxl_ldm_inpaint_model, sdxl_embedding_path) and each job (ckpt, vae_ckpt,
+refiner_ckpt, lora_models, control_net) name (app/backends.py); one model
+of either family stays
 resident. $SAFETY_CHECKER_PATH names the image safety checker's weights.
 `--deny-term` adds a term to the prompt gate's deny list. For smoke runs
 only, `--random-weights --seed N [--inpaint]` serves SD1.5 bundles of
@@ -136,13 +137,16 @@ class ApiServer:
 
     def handle(self, method: str, path: str, body: Dict[str, Any]):
         if path == "/v1/meta":
-            from cremage_tpu_torch.pipelines.sd15 import MODES, SAMPLER_MENU
+            from cremage_tpu_torch.pipelines.sd15 import (
+                EXTRA_SAMPLERS, MODES, SAMPLER_MENU,
+            )
             from cremage_tpu_torch.samplers.edm import SGM_SAMPLER_NAMES
 
             # SDXL runs the sgm menu, SD1.5 the k-diffusion/DDIM names, as
-            # the JAX server lists them
+            # the JAX server lists them; both run the extra samplers
             return {"model_types": [GMT_SD_1_5, GMT_SDXL],
                     "modes": list(MODES), "samplers": list(SAMPLER_MENU),
+                    "extra_samplers": list(EXTRA_SAMPLERS),
                     "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
                                          GMT_SDXL: list(SGM_SAMPLER_NAMES)}}
         if path == "/v1/upload" and method == "POST":

@@ -140,7 +140,8 @@ class Preferences:
     from config.yaml and ignored). The SD1.5 backend loads ldm_model_path /
     ldm_model (ldm_inpaint_model for mode "inpainting") and TI files from
     embedding_path; the SDXL backend loads sdxl_ldm_model_path /
-    sdxl_ldm_model and TI files from sdxl_embedding_path. A job's VAE,
+    sdxl_ldm_model (sdxl_ldm_inpaint_model, when set, for mode
+    "inpainting") and TI files from sdxl_embedding_path. A job's VAE,
     ControlNet and LoRA paths are used as given, as in the JAX backends, so
     control_model_path and lora_model_path only tell a client where the
     model files are."""
@@ -153,6 +154,7 @@ class Preferences:
     embedding_path: str = "models/embeddings"
     sdxl_ldm_model_path: str = "models/ldm"
     sdxl_ldm_model: str = "None"
+    sdxl_ldm_inpaint_model: str = "None"
     sdxl_embedding_path: str = "models/embeddings_sdxl"
 
 

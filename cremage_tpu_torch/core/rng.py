@@ -18,11 +18,14 @@ latents). The draws of one batch, with the JAX key each stands for
   DDIM), normal(key) at the sampling shape;
 - `step(i, shape, draw)`: draw `draw` of sampler step i, from
   split(key, n * per_step).reshape(n, per_step)[i, draw] (DPM++ SDE makes
-  two draws a step, every other sampler one);
+  two draws a step, LCM's re-noise and every other sampler one);
 - `posterior`: the VAE posterior sample of img2img's init image,
   normal(fold_in(key, 7));
 - `hires()`: the source of the hires fix's second pass, whose key is
-  fold_in(key, 1).
+  fold_in(key, 1);
+- `refiner()`: the source of the SDXL refiner's pass, whose key is
+  fold_in(key, 99) (its `encode` noises the base latent, its `step` draws
+  are the refiner sampler's).
 """
 from __future__ import annotations
 
@@ -71,11 +74,15 @@ class NoiseSource(Protocol):
     def hires(self) -> "NoiseSource":
         """The noise source of the hires fix's second pass."""
 
+    def refiner(self) -> "NoiseSource":
+        """The noise source of the SDXL refiner's pass."""
+
 
 class GeneratorNoise:
     """Default source: one torch.Generator per batch, seeded with
     seed + image index, on the pipeline's device. Every draw, the hires
-    pass's included, comes from it in the order the pipeline asks."""
+    and refiner passes' included, comes from it in the order the pipeline
+    asks."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = torch.device(device)
@@ -100,25 +107,29 @@ class GeneratorNoise:
     def hires(self):
         return self
 
+    def refiner(self):
+        return self
+
 
 class ArrayNoise:
     """Noise handed over as arrays, e.g. the ones the JAX pipeline drew:
     the initial noise, then one entry per sampler step (an array, or a
     sequence of arrays where a step makes several draws), and optionally
-    the encode and posterior noise and the hires pass's own ArrayNoise.
-    Asking for a draw that was not handed over raises."""
+    the encode and posterior noise and the hires and refiner passes' own
+    ArrayNoise. Asking for a draw that was not handed over raises."""
 
     def __init__(self, initial: Optional[np.ndarray],
                  steps: Sequence = (), device="cpu", *,
                  encode: Optional[np.ndarray] = None,
                  posterior: Optional[np.ndarray] = None,
-                 hires: Optional["ArrayNoise"] = None):
+                 hires: Optional["ArrayNoise"] = None,
+                 refiner: Optional["ArrayNoise"] = None):
         self.device = torch.device(device)
         self._initial = initial
         self._steps = list(steps)
         self._encode = encode
         self._posterior = posterior
-        self._hires = hires
+        self._passes = {"hires": hires, "refiner": refiner}
 
     def _take(self, arr, shape, what):
         if arr is None:
@@ -146,7 +157,13 @@ class ArrayNoise:
     def posterior(self, shape):
         return self._take(self._posterior, shape, "posterior")
 
+    def _pass(self, what):
+        if self._passes[what] is None:
+            raise ValueError(f"ArrayNoise: no {what} noise was handed over")
+        return self._passes[what]
+
     def hires(self):
-        if self._hires is None:
-            raise ValueError("ArrayNoise: no hires noise was handed over")
-        return self._hires
+        return self._pass("hires")
+
+    def refiner(self):
+        return self._pass("refiner")

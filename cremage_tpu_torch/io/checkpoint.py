@@ -16,7 +16,9 @@
   component is stripping its prefix (`component_state_dict`). Keys that
   belong to no model (the DDPM schedule buffers, `model_ema.*`, CLIP's
   `position_ids`) are dropped by name (`split_sd15`, `split_sdxl`); any
-  other key raises. SDXL's OpenCLIP tower stores its attention input
+  other key raises (`split_sdxl_refiner` also drops the refiner file's
+  own VAE, which the pipeline never reads: it decodes with the base
+  model's). SDXL's OpenCLIP tower stores its attention input
   projection fused (`attn.in_proj_weight` / `in_proj_bias`, rows [q; k; v]);
   `openclip_text_subdict` splits it into the port's q/k/v projections.
 """
@@ -49,6 +51,8 @@ PREFIX_VAE = "first_stage_model."
 PREFIX_CLIP_SD15 = "cond_stage_model.transformer.text_model."
 PREFIX_CLIP_SDXL = "conditioner.embedders.0.transformer.text_model."
 PREFIX_OPENCLIP_SDXL = "conditioner.embedders.1.model."
+# the SDXL refiner's one text tower, bigG (sd_xl_refiner_1.0's layout)
+PREFIX_OPENCLIP_REFINER = "conditioner.embedders.0.model."
 PREFIX_CONTROLNET = "control_model."
 # SDXL checkpoint keys of no model of the port besides the SD1.5 ones:
 # the sgm denoiser's sigma table (the port builds its own)
@@ -256,6 +260,22 @@ def split_sdxl(sd: Mapping[str, torch.Tensor]
     out = {p: component_state_dict(sd, p) for p in prefixes[:3]}
     out[PREFIX_OPENCLIP_SDXL] = openclip_text_subdict(sd)
     return out
+
+
+def split_sdxl_refiner(sd: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An SDXL refiner single-file state dict -> {prefix: component dict}
+    of its UNet and its OpenCLIP tower (split q/k/v). Its VAE keys and the
+    keys of no model are dropped by name; any other raises."""
+    unknown = [k for k in sd if not k.startswith(
+        (PREFIX_UNET, PREFIX_OPENCLIP_REFINER, PREFIX_VAE, "model_ema."))
+        and k not in SCHEDULE_KEYS and k not in SDXL_EXTRA_KEYS]
+    if unknown:
+        raise KeyError(f"{len(unknown)} checkpoint keys belong to no SDXL "
+                       f"refiner component (first 10): {sorted(unknown)[:10]}")
+    return {PREFIX_UNET: component_state_dict(sd, PREFIX_UNET),
+            PREFIX_OPENCLIP_REFINER: openclip_text_subdict(
+                sd, PREFIX_OPENCLIP_REFINER)}
 
 
 def openclip_text_subdict(sd: Mapping[str, torch.Tensor],

@@ -66,8 +66,7 @@ def sdxl_base_unet_config(**kw) -> UNetConfig:
 
 
 def sdxl_refiner_unet_config(**kw) -> UNetConfig:
-    """sd_xl_refiner.yaml network_config (a config only: the refiner's
-    pipeline is not ported)."""
+    """sd_xl_refiner.yaml network_config."""
     return UNetConfig(
         in_channels=4, out_channels=4, model_channels=384,
         attention_resolutions=(4, 2), channel_mult=(1, 2, 4, 4),

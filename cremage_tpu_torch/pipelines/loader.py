@@ -1,15 +1,16 @@
 """Checkpoint files -> SD15Bundle / SDXLBundle (the port of
 cremage_tpu/pipelines/loader.py `load_sd15_bundle` and `load_sdxl_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
-ControlNet beside. The SDXL refiner, inpainting and 8-bit branches are not
-ported yet.
+ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
+into the base model only, as in JAX; the refiner takes none.
 
 Each component is built on the meta device and filled from the file
 strictly (io/checkpoint.py `load_into`), every tensor converted to its
 parameter's dtype on the way to the device, so the host holds no converted
 copy of the weights (the file itself is memory-mapped). LoRAs merge on the
 device in float32 and are cast back (io/lora.py). The JAX package's
-FaceID and 8-bit branches are not ported yet; its on-disk params cache
+FaceID and 8-bit (`unet_quantize`) branches are not ported yet; its
+on-disk params cache
 saves its torch -> JAX conversion, which the port does not have, so there
 is none here.
 """
@@ -33,6 +34,7 @@ from cremage_tpu_torch.models.open_clip import (
 )
 from cremage_tpu_torch.models.unet import (
     UNetConfig, UNetModel, sd15_unet_config, sdxl_base_unet_config,
+    sdxl_refiner_unet_config,
 )
 from cremage_tpu_torch.models.vae import AutoencoderKL, VAEConfig, sdxl_vae_config
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
@@ -152,18 +154,24 @@ def load_sd15_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
 
 
 def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
+                     refiner_ckpt: Optional[str] = None,
                      loras: Sequence[Tuple[str, float]] = (),
                      embedding_dir: Optional[str] = None,
+                     inpainting: bool = False,
                      device=None, dtype: torch.dtype = torch.bfloat16
                      ) -> SDXLBundle:
-    """An SDXL base bundle on `device` (CUDA unless named) in `dtype` from
-    a single-file checkpoint (the sgm key layout), an optional standalone
-    VAE, (path, weight) LoRAs (UNet, te1 -> CLIP-L, te2 -> OpenCLIP bigG)
-    and a TI directory (two-tower files give each tower its entry), at
-    the published configs; `load_report` as in load_sd15_bundle."""
+    """An SDXL bundle on `device` (CUDA unless named) in `dtype` from a
+    single-file checkpoint (the sgm key layout; with `inpainting`, the
+    9-channel inpainting UNet's), an optional standalone VAE, an optional
+    refiner file (sd_xl_refiner_1.0's layout: its UNet and bigG), (path,
+    weight) LoRAs merged into the base model (UNet, te1 -> CLIP-L, te2 ->
+    OpenCLIP bigG) and a TI directory (two-tower files give each tower its
+    entry), at the published configs; `load_report` as in
+    load_sd15_bundle."""
     device = resolve_device(device)
     loads = _Loads(device)
-    unet_cfg = dataclasses.replace(sdxl_base_unet_config(), dtype=dtype)
+    unet_cfg = dataclasses.replace(sdxl_base_unet_config(), dtype=dtype,
+                                   in_channels=9 if inpainting else 4)
     vae_cfg = dataclasses.replace(sdxl_vae_config(), dtype=dtype)
     clip_cfg = dataclasses.replace(CLIPTextConfig(), dtype=dtype)
     openclip_cfg = dataclasses.replace(openclip_bigg_config(), dtype=dtype)
@@ -180,6 +188,22 @@ def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
                      vae_path, "VAE")
     del parts, vae_sd
     loads.merge_loras(loras, unet, clip, unet_cfg, text2=oc)
-    cond = SDXLConditioner(clip, oc, default_tokenizer(), embedding_dir)
+    tok = default_tokenizer()
+    cond = SDXLConditioner(clip, oc, tok, embedding_dir)
+    refiner_unet = refiner_cond = None
+    if refiner_ckpt:
+        r_cfg = dataclasses.replace(sdxl_refiner_unet_config(), dtype=dtype)
+        rparts = CK.split_sdxl_refiner(loads.read(refiner_ckpt))
+        refiner_unet = loads.fill(_on_meta(UNetModel, r_cfg, dtype),
+                                  rparts.pop(CK.PREFIX_UNET), refiner_ckpt,
+                                  "refiner UNet")
+        roc = loads.fill(_on_meta(OpenCLIPTextModel, openclip_cfg, dtype),
+                         rparts.pop(CK.PREFIX_OPENCLIP_REFINER), refiner_ckpt,
+                         "refiner OpenCLIP")
+        del rparts
+        refiner_cond = SDXLConditioner(None, roc, tok, embedding_dir,
+                                       refiner_mode=True)
     return SDXLBundle(unet=unet, conditioner=cond, vae=vae,
+                      refiner_unet=refiner_unet,
+                      refiner_conditioner=refiner_cond,
                       load_report=loads.report)

@@ -3,7 +3,8 @@ port of cremage_tpu/pipelines/sd15.py).
 
 Behavior contract: prompt weighting + chunking + filler-pad, clip_skip,
 the reference's 12-name sampler menu (DDIM + the 11 k-diffusion names of
-samplers/kdiffusion.py) with batched [uncond; cond] CFG, img2img from the
+samplers/kdiffusion.py) and the JAX server's `extra_samplers` (PLMS, DPM
+Solver, LCM) with batched [uncond; cond] CFG, img2img from the
 VAE encoder's posterior sample with t_enc = max(1, int(strength * steps)),
 inpainting through the 9-channel UNet with [x, mask, masked-image latent]
 conditioning and the result composited over the unmasked pixels, hires fix
@@ -50,6 +51,8 @@ from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
 from cremage_tpu_torch.prompt.wildcards import resolve_wildcards
 from cremage_tpu_torch.samplers import ddim as DDIM
 from cremage_tpu_torch.samplers import kdiffusion as K
+from cremage_tpu_torch.samplers import lcm as LCM
+from cremage_tpu_torch.samplers import ldm_extra as LDMX
 from cremage_tpu_torch.samplers import schedules as S
 from cremage_tpu_torch.samplers.denoiser import EpsDenoiser, cfg_denoiser
 from cremage_tpu_torch.services.safety import ImageSafetyChecker, default_image_safety
@@ -62,8 +65,13 @@ logger = logging.getLogger(__name__)
 StatusCb = Callable[[str], None]
 NoiseFactory = Callable[[int, torch.device], NoiseSource]
 
-# the reference's menu, as the JAX server's /v1/meta lists it
+# the reference's menu, as the JAX server's /v1/meta lists it, and the
+# samplers beyond it that the JAX server lists as `extra_samplers`
 SAMPLER_MENU = ("DDIM",) + tuple(sorted(K.SAMPLER_SCHEDULE))
+EXTRA_SAMPLERS = ("PLMS", "DPM Solver", "LCM")
+# driven by the DDPM timestep t, from unit noise (LCM from its grid's top
+# sigma), not by the k-diffusion sigma schedule
+T_DRIVEN_SAMPLERS = ("DDIM", "PLMS", "DPM Solver", "LCM")
 MODES = (MODE_TEXT_TO_IMAGE, MODE_IMAGE_TO_IMAGE, MODE_INPAINTING)
 
 
@@ -93,7 +101,7 @@ def check_supported(opts: GenerationOptions) -> None:
     """Raise NotImplementedError for every option this port does not run
     yet (the JAX pipeline runs them all)."""
     unsupported = {
-        "sampler": opts.sampler not in SAMPLER_MENU,
+        "sampler": opts.sampler not in SAMPLER_MENU + EXTRA_SAMPLERS,
         "mode": opts.mode not in MODES,
         "face_input_img": bool(opts.face_input_img or opts.face_model),
         "auto_face_fix": bool(opts.auto_face_fix),
@@ -107,7 +115,7 @@ def check_supported(opts: GenerationOptions) -> None:
         vals = {k: getattr(opts, k, None) for k in bad}
         raise NotImplementedError(
             f"the PyTorch SD1.5 pipeline runs the modes {MODES} with the "
-            f"samplers {SAMPLER_MENU}; not ported: {vals}")
+            f"samplers {SAMPLER_MENU + EXTRA_SAMPLERS}; not ported: {vals}")
 
 
 class SD15Pipeline:
@@ -173,8 +181,13 @@ class SD15Pipeline:
 
     def _sigma0(self, opts) -> float:
         """Initial-noise scale: k-diffusion's x = N(0, 1) * sigma_max of
-        the sampler's schedule; DDIM starts from unit noise."""
-        if opts.sampler == "DDIM":
+        the sampler's schedule; the t-driven samplers start from unit
+        noise, LCM at its own grid's top sigma."""
+        if opts.sampler == "LCM":
+            return float(LCM.make_lcm_schedule(
+                self.bundle.schedule.alphas_cumprod,
+                opts.sampling_steps).sigmas[0])
+        if opts.sampler in T_DRIVEN_SAMPLERS:
             return 1.0
         if K.SAMPLER_SCHEDULE[opts.sampler] == "model":
             return float(self.bundle.schedule.get_sigmas(opts.sampling_steps)[0])
@@ -198,18 +211,10 @@ class SD15Pipeline:
 
         sched = self.bundle.schedule
         eps_model = self._eps_model(extra, hint, control_weight)
-        if name == "DDIM":
-            ddim = DDIM.make_ddim_schedule(sched.alphas_cumprod, steps,
-                                           eta=opts.ddim_eta)
-            eps_cfg = cfg_denoiser(eps_model, c, uc, scale)
-            if t_enc is None:
-                return DDIM.sample(eps_cfg, x_init, ddim, noise,
-                                   progress_cb=progress)
-            xt = DDIM.stochastic_encode(
-                init_latent, ddim, t_enc - 1,
-                noise.encode(tuple(init_latent.shape)))
-            return DDIM.sample(eps_cfg, xt, ddim, noise, t_start=t_enc,
-                               progress_cb=progress)
+        if name in T_DRIVEN_SAMPLERS:
+            return self._sample_t_driven(
+                opts, x_init, c, uc, noise, steps, t_enc, init_latent,
+                eps_model, progress)
         if K.SAMPLER_SCHEDULE[name] == "model":
             sigmas = sched.get_sigmas(steps)
         else:
@@ -229,6 +234,46 @@ class SD15Pipeline:
                 tuple(init_latent.shape)) * float(sigmas[0])
         return K.SAMPLERS[name](den, x, sigmas, noise, progress_cb=progress,
                                 **kwargs)
+
+    def _sample_t_driven(self, opts, x_init, c, uc, noise: NoiseSource,
+                         steps: int, t_enc: Optional[int], init_latent,
+                         eps_model, progress) -> torch.Tensor:
+        """DDIM, PLMS, DPM Solver and LCM on the model's alphas_cumprod;
+        img2img (t_enc) through each one's own stochastic encode."""
+        name, scale = opts.sampler, float(opts.scale)
+        sched = self.bundle.schedule
+        acp = sched.alphas_cumprod
+        eps_cfg = cfg_denoiser(eps_model, c, uc, scale)
+        if name == "DPM Solver":
+            if t_enc is not None:
+                raise ValueError("DPM Solver supports txt2img only (the "
+                                 "reference exposes it for full sampling "
+                                 "runs only)")
+            return LDMX.sample_dpm_solver(
+                eps_cfg, x_init, LDMX.make_dpm_solver_schedule(acp, steps),
+                progress_cb=progress)
+        enc = (None if t_enc is None
+               else noise.encode(tuple(init_latent.shape)))
+        if name == "LCM":
+            # img2img maps t_enc to diffusers' strength-truncated origin
+            # grid (strength = t_enc / steps, t_enc steps run) and encodes
+            # to its top sigma in k-space
+            lsched = LCM.make_lcm_schedule(
+                acp, steps if t_enc is None else t_enc,
+                strength=1.0 if t_enc is None else t_enc / steps)
+            x = x_init if t_enc is None else (
+                init_latent.float() + enc * float(lsched.sigmas[0]))
+            den = cfg_denoiser(EpsDenoiser(eps_model, sched), c, uc, scale)
+            return LCM.sample_lcm(den, x, lsched, noise, progress_cb=progress)
+        ddim = DDIM.make_ddim_schedule(
+            acp, steps, eta=0.0 if name == "PLMS" else opts.ddim_eta)
+        x = x_init if t_enc is None else DDIM.stochastic_encode(
+            init_latent, ddim, t_enc - 1, enc)
+        if name == "PLMS":
+            return LDMX.sample_plms(eps_cfg, x, ddim, t_start=t_enc,
+                                    progress_cb=progress)
+        return DDIM.sample(eps_cfg, x, ddim, noise, t_start=t_enc,
+                           progress_cb=progress)
 
     def txt2img_latents(self, opts: GenerationOptions, c, uc,
                         noise: NoiseSource,

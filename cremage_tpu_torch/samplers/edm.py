@@ -1,5 +1,4 @@
-"""sgm-style EDM sampling for SDXL (the port of cremage_tpu/samplers/edm.py
-without the video guiders).
+"""sgm-style EDM sampling for SDXL (the port of cremage_tpu/samplers/edm.py).
 
 Behavior contract (sgm `modules/diffusionmodules/`):
 - discretizations: LegacyDDPMDiscretization (a linspace-int subset of the
@@ -9,9 +8,10 @@ Behavior contract (sgm `modules/diffusionmodules/`):
   model's table, the table index fed as the network's timestep; the Eps /
   V / EDM scalings;
 - guiders: VanillaCFG, one network call over [uc; c] (optionally only for
-  sigma within an interval, the conditional half alone outside it), and
-  IdentityGuider. The linear and triangle prediction guiders are SVD's
-  and are not ported;
+  sigma within an interval, the conditional half alone outside it),
+  IdentityGuider, and SVD's LinearPredictionGuider and
+  TrianglePredictionGuider, which give each of `num_frames` frames of the
+  batch its own scale (one frame for images);
 - the six sgm samplers run on the k-diffusion loops of
   samplers/kdiffusion.py, after sgm's input scaling x * sqrt(1 + sigma0^2)
   (prepare_sampling_loop) for txt2img.
@@ -184,7 +184,60 @@ def identity_guider(denoiser: Callable, c: Dict, uc: Dict,
     return denoise
 
 
-GUIDERS = {"VanillaCFG": vanilla_cfg, "IdentityGuider": identity_guider}
+def _frame_scaled_cfg(denoiser: Callable, c: Dict, uc: Dict,
+                      scales_per_frame: np.ndarray, num_frames: int) -> Callable:
+    """CFG over [uc; c] with frame f of each num_frames-long run of the
+    batch guided by scales_per_frame[f]."""
+    cond_in = _cat_conds(uc, c)
+    sc = torch.as_tensor(np.asarray(scales_per_frame, np.float32))
+
+    def denoise(x, sigma):
+        b = x.shape[0]
+        sigma = _bcast_sigma(sigma, b, x.device)
+        d = denoiser(torch.cat([x, x], dim=0), torch.cat([sigma, sigma]),
+                     cond_in)
+        shp = (b // num_frames, num_frames) + tuple(d.shape[1:])
+        du, dc = d[:b].reshape(shp), d[b:].reshape(shp)
+        scale = sc.to(d.device).reshape((1, num_frames) + (1,) * (len(shp) - 2))
+        return (du + scale * (dc - du)).reshape(d[:b].shape)
+
+    return denoise
+
+
+def linear_prediction_guider(denoiser: Callable, c: Dict, uc: Dict,
+                             scale: float, num_frames: int = 1,
+                             min_scale: float = 1.0, max_scale=None,
+                             **_ignored) -> Callable:
+    """Scales linear from min_scale to max_scale over the frames."""
+    max_scale = scale if max_scale is None else max_scale
+    return _frame_scaled_cfg(denoiser, c, uc,
+                             np.linspace(min_scale, max_scale, num_frames),
+                             num_frames)
+
+
+def triangle_prediction_guider(denoiser: Callable, c: Dict, uc: Dict,
+                               scale: float, num_frames: int = 1,
+                               min_scale: float = 1.0, max_scale=None,
+                               period=1.0, period_fusing: str = "max",
+                               **_ignored) -> Callable:
+    """Scales on a triangle wave over the frames (each period's wave in
+    [0, 1], fused by max, mean or product) from min_scale to max_scale."""
+    max_scale = scale if max_scale is None else max_scale
+    values = np.linspace(0, 1, num_frames)
+    periods = [period] if isinstance(period, (int, float)) else list(period)
+    w = np.stack([2 * np.abs(values / p - np.floor(values / p + 0.5))
+                  for p in periods])
+    fused = {"mean": lambda a: a.mean(0),
+             "multiply": lambda a: np.prod(a, axis=0)}.get(
+                 period_fusing, lambda a: a.max(0))(w)
+    return _frame_scaled_cfg(denoiser, c, uc,
+                             fused * (max_scale - min_scale) + min_scale,
+                             num_frames)
+
+
+GUIDERS = {"VanillaCFG": vanilla_cfg, "IdentityGuider": identity_guider,
+           "LinearPredictionGuider": linear_prediction_guider,
+           "TrianglePredictionGuider": triangle_prediction_guider}
 
 SGM_SAMPLER_FNS = {
     "EulerEDMSampler": K.sample_euler,

@@ -117,6 +117,10 @@ HIRES_NQ_NK_D = [(9216, 9216, 40), (9216, 77, 40), (2304, 2304, 80),
                  (16384, 16384, 512)]
 # the image safety checker's CLIP ViT-L/14 tower: 257 tokens at d = 64
 SAFETY_NQ_NK_D = [(257, 257, 64)]
+# the SDXL refiner's UNet at a 1024^2 latent: 12 heads of 64 at 64^2, 24 at
+# 32^2 and the 16^2 middle block, each with its 77-key cross-attention
+REFINER_NQ_NK_D = [(4096, 4096, 64), (4096, 77, 64), (1024, 1024, 64),
+                   (1024, 77, 64), (256, 256, 64), (256, 77, 64)]
 ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D + SAFETY_NQ_NK_D
 
 
@@ -173,6 +177,23 @@ def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
     plan = plan_flash(d, nq, nk)
     assert plan.bq == 64 * plan.nwg // plan.split
     assert tuple(map(str, (plan.dp, plan.bk, plan.split, plan.nwg))) in cases
+
+
+def test_plans_take_the_refiner_shapes():
+    """The SDXL refiner's K1 and K2 shapes through each plan test above
+    (one test: under `--dist load` the number of collected items sets the
+    suite's wall time, ROADMAP.md)."""
+    for nq, nk, d in REFINER_NQ_NK_D:
+        for check in (test_flash_plan_fits_shared_memory,
+                      test_flash_plan_tma_boxes, test_flash_plan_key_tile,
+                      test_flash_plan_output_split_covers_d_once,
+                      test_flash_plan_is_an_instantiation_of_the_kernel):
+            check(nq, nk, d)
+    for shape in REFINER_GN:
+        for check in (test_groupnorm_plan_covers_slab_once,
+                      test_groupnorm_plan_fits_a_cta,
+                      test_groupnorm_new_path_route):
+            check(*shape)
 
 
 def _gn_inputs(seed, n, h, c, mean=0.0):
@@ -274,6 +295,9 @@ NEW_PATH_GN = [(1, 128, 512, 512), (1, 128, 256, 256), (1, 256, 256, 256),
                (2, 512, 96, 96), (2, 512, 192, 192), (2, 512, 384, 384),
                (2, 256, 384, 384), (2, 256, 768, 768), (2, 128, 768, 768),
                (1, 512, 512, 512), (1, 256, 1024, 1024)]
+# the SDXL refiner's UNet at the CFG batch of 2 over a 1024^2 latent: 384
+# channels (12 a group) at 128^2, 1152 at 64^2, 2304 at 32^2
+REFINER_GN = [(2, 384, 128, 128), (2, 1152, 64, 64), (2, 2304, 32, 32)]
 # edge cases: H*W = 8; a slab not divisible by 8 * k (a short last piece);
 # N * G = 65535, the grid's y limit
 EDGE_GN = [(2, 64, 1, 8), (2, 96, 61, 136), (65535, 1, 1, 64)]
@@ -540,6 +564,39 @@ def test_groupnorm_kernel_takes_any_hw(cuda, n, c, h, w, silu):
     want = group_norm_silu_reference(xt, wt, bt, 32, 1e-5, silu)
     assert float((got.float() - want.float()).abs().max()) <= \
         2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_at_refiner_shapes(cuda):
+    """The SDXL refiner's K1 calls on the card (12 and 24 heads of d = 64:
+    a TMA box spans heads): the kernel, as test_flash_kernel_matches_plain
+    holds it."""
+    for (nq, nk, d), h in zip(REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24)):
+        before = flash_attention.launches
+        test_flash_kernel_matches_plain(cuda, 2, nq, nk, h, d)
+        assert flash_attention.launches == before + 1, (nq, nk, h)
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernel_at_refiner_shapes(cuda):
+    """The SDXL refiner's slabs (12 channels a group at 128^2) on the card,
+    with and without SiLU: the kernel within one bf16 ulp of the plain
+    version."""
+    rng = np.random.RandomState(7)
+    for n, c, h, w in REFINER_GN:
+        for silu in (True, False):
+            xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(
+                np.float32)).to(cuda, torch.bfloat16)
+            wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+                      for _ in "wb")
+            before = group_norm_silu.launches
+            got = group_norm_silu(xt, wt, bt, 32, 1e-5, silu)
+            torch.cuda.synchronize()
+            assert group_norm_silu.launches == before + 1
+            want = group_norm_silu_reference(xt, wt, bt, 32, 1e-5, silu)
+            assert float((got.float() - want.float()).abs().max()) <= \
+                2.0 ** -7 * max(1.0, float(want.float().abs().max())), \
+                (n, c, h, w, silu)
 
 
 @pytest.mark.cuda

@@ -56,13 +56,22 @@ OPTS = dict(prompt="a (red:1.2) cat", negative_prompt="bad", H=64, W=64,
             sampler="Euler A", scale=7.5, safety_check=False)
 
 
+_SHAPES = {}
+
+
 def jax_params(module, seed, *args):
     """Seeded numpy parameters in the shapes of `module.init(key, *args)`,
     taken from jax.eval_shape so that no init program is compiled (the
     compile took most of this module's set-up), drawn as the JAX layers
     initialise them: norm weights 1 and biases 0, weights lecun_normal
     (a normal truncated at 2 sigma, scaled to variance 1 / fan_in),
-    embeddings N(0, 0.02); each plus 0.1 N(0, 1) so no layer is trivial."""
+    embeddings N(0, 0.02); each plus 0.1 N(0, 1) so no layer is trivial.
+    The shapes are memoized per module config and input shapes: a trace of
+    a model's init takes a second or more, and the port's test modules
+    share their tiny configs."""
+    key = (repr(module), tuple((a.shape, str(a.dtype)) for a in args))
+    if key not in _SHAPES:
+        _SHAPES[key] = jax.eval_shape(module.init, jax.random.key(0), *args)
     rng = np.random.RandomState(seed)
 
     def lecun_normal(shape):
@@ -84,8 +93,7 @@ def jax_params(module, seed, *args):
             base = 0.02 * rng.randn(*shape)
         return (base + 0.1 * rng.randn(*shape)).astype(np.float32)
 
-    return jax.tree_util.tree_map_with_path(
-        leaf, jax.eval_shape(module.init, jax.random.key(0), *args))
+    return jax.tree_util.tree_map_with_path(leaf, _SHAPES[key])
 
 
 @pytest.fixture(scope="module")
@@ -179,13 +187,12 @@ def test_txt2img_latents_match_jax(bundles, jax_pipe):
 
 
 def test_unsupported_options_raise(bundles):
-    """What the port does not run yet raises: the samplers beyond the
-    reference's menu, FaceID, auto face fix and the speed features.
-    (ControlNet, LoRA, TI, wildcards, the safety checker and the watermark
-    are ported: tests/test_torch_loader.py.)"""
+    """What the port does not run yet raises: FaceID, auto face fix and
+    the speed features. (ControlNet, LoRA, TI, wildcards, the safety
+    checker and the watermark are ported: tests/test_torch_loader.py; PLMS,
+    DPM Solver and LCM: tests/test_torch_ldm_extra.py.)"""
     pipe = SD15Pipeline(bundles[1], device="cpu")
-    for bad in (dict(sampler="PLMS"), dict(sampler="DPM Solver"),
-                dict(sampler="LCM"), dict(mode="face_fix"),
+    for bad in (dict(sampler="UniPC"), dict(mode="face_fix"),
                 dict(face_input_img="face.png"), dict(face_model="f.bin"),
                 dict(auto_face_fix=True),
                 dict(tome_ratio=0.5), dict(deep_cache=2), dict(ada_cache=0.1),

@@ -62,6 +62,14 @@ UNET_KW = dict(in_channels=4, out_channels=4, model_channels=32,
                num_heads=-1, num_head_channels=16, transformer_depth=(1, 2),
                transformer_depth_middle=2, context_dim=CTX, adm_in_channels=ADM,
                use_linear_in_transformer=True)
+# the refiner's: bigG's width as context, a vector of pooled + orig_size +
+# crop_coords + aesthetic score
+R_ADM = G_HID + 2 * 512 + 256
+REF_KW = dict(in_channels=4, out_channels=4, model_channels=64,
+              num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+              num_heads=-1, num_head_channels=16, transformer_depth=(1, 1),
+              transformer_depth_middle=1, context_dim=G_HID,
+              adm_in_channels=R_ADM, use_linear_in_transformer=True)
 CLIP_KW = dict(hidden_size=L_HID, num_layers=2, num_heads=4, intermediate_size=64)
 OC_KW = dict(width=G_HID, num_layers=2, num_heads=4)
 TI_G_TOKENS = 74      # with "a dog" after it, bigG's prompt takes 2 chunks
@@ -322,13 +330,15 @@ def test_sgm_sampler_matches_jax(name, disc):
 
 
 # each option the SDXL port does not run, as a job sets it
-REFUSED = [dict(sampler="LCM"), dict(sampler="Euler A"),
-           dict(mode="inpainting"), dict(refiner_ckpt="r.safetensors"),
-           dict(refiner_strength=0.3), dict(guider="LinearPredictionGuider"),
-           dict(guider="TrianglePredictionGuider"),
+REFUSED = [dict(sampler="Euler A"),
            dict(cfg_interval_low=0.5, cfg_interval_high=5.0),
            dict(deep_cache=3), dict(tome_ratio=0.5), dict(ada_cache=0.1),
            dict(extra={"unet_quantize": "int8"}), dict(auto_face_fix=True)]
+# the options the earlier slices refused and this one ports
+PORTED_NOW = [dict(sampler="LCM"), dict(mode="inpainting"),
+              dict(refiner_ckpt="r.safetensors"), dict(refiner_strength=0.3),
+              dict(guider="LinearPredictionGuider"),
+              dict(guider="TrianglePredictionGuider")]
 
 
 @pytest.mark.parametrize("opt", REFUSED, ids=lambda o: "-".join(map(str, o)))
@@ -336,6 +346,12 @@ def test_check_supported_refuses_what_is_not_ported(opt):
     base = dict(sampler="EulerEDMSampler")
     with pytest.raises(NotImplementedError, match="not ported"):
         X.check_supported(GenerationOptions(**{**base, **opt}))
+
+
+@pytest.mark.parametrize("opt", PORTED_NOW, ids=lambda o: "-".join(map(str, o)))
+def test_check_supported_takes_what_slice_7_ports(opt):
+    X.check_supported(GenerationOptions(**{"sampler": "EulerEDMSampler",
+                                           **opt}))
 
 
 def test_check_supported_takes_the_ported_options():
@@ -356,3 +372,4 @@ def test_meta_lists_sdxl_as_the_jax_server():
     assert ours["model_types"] == ["SD 1.5", "SDXL"]
     assert ours["samplers_by_type"]["SDXL"] == ref["samplers_by_type"]["SDXL"]
     assert ours["samplers_by_type"]["SD 1.5"] == ref["samplers_by_type"]["SD 1.5"]
+    assert ours["extra_samplers"] == ref["extra_samplers"]

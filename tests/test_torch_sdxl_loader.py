@@ -53,10 +53,13 @@ from cremage_tpu_torch.pipelines import loader as LOADER
 from cremage_tpu_torch.pipelines.loader import load_sdxl_bundle
 from cremage_tpu_torch.pipelines.sdxl import SDXLPipeline
 from tests.conftest import assert_img01_close
-from tests.test_torch_sdxl import ADM, CLIP_KW, CTX, G_HID, L_HID, OC_KW, UNET_KW
+from tests.test_torch_sdxl import (
+    ADM, CLIP_KW, CTX, G_HID, L_HID, OC_KW, R_ADM, REF_KW, UNET_KW,
+)
 
 torch.set_num_threads(2)
 F32 = torch.float32
+_jax_template = JLOADER._template    # unpatched, whatever a test swaps in
 VAE_KW = dict(ch=32, ch_mult=(1, 1, 1, 1), num_res_blocks=1, scale_factor=0.13025)
 PREFIX_G = "conditioner.embedders.1.model."
 
@@ -154,35 +157,50 @@ def files(tmp_path_factory):
     return {k: str(v) for k, v in paths.items()}
 
 
-def _jax_bundle(files, monkeypatch):
-    """JAX's load_sdxl_bundle on the files, with its configs swapped for
-    the tiny ones (it takes no config arguments) and its param templates
-    traced at the tiny context and vector widths."""
+_TEMPLATES = {}
+
+
+def _jax_bundle(files, monkeypatch, **kw):
+    """JAX's load_sdxl_bundle on the files (by default with the LoRA and
+    the TI directory; `kw` adds to or overrides its arguments), with its
+    configs swapped for the tiny ones (it takes no config arguments) and
+    its param templates traced at the tiny context and vector widths."""
     monkeypatch.setattr(JUNETM, "sdxl_base_unet_config",
                         lambda **kw: JUNetConfig(**UNET_KW, **kw))
+    monkeypatch.setattr(JUNETM, "sdxl_refiner_unet_config",
+                        lambda **kw: JUNetConfig(**REF_KW, **kw))
     monkeypatch.setattr(JVAEM, "sdxl_vae_config",
                         lambda **kw: JVAEConfig(**VAE_KW, **kw))
     monkeypatch.setattr(JOCM, "openclip_bigg_config",
                         lambda **kw: JOCConfig(**OC_KW, **kw))
     monkeypatch.setattr(JLOADER, "CLIPTextConfig",
                         lambda **kw: JCLIPConfig(**CLIP_KW, **kw))
-    template = JLOADER._template
+    tiny = {(1, 77, 2048): (1, 77, CTX), (1, 2816): (1, ADM),
+            (1, 77, 1280): (1, 77, G_HID), (1, 2560): (1, R_ADM)}
 
     def tiny_template(model, *args):
-        args = [jnp.zeros((1, 77, CTX)) if a.shape == (1, 77, 2048) else
-                jnp.zeros((1, ADM)) if a.shape == (1, 2816) else a for a in args]
-        return template(model, *args)
+        # memoized: each trace of a model's init takes a second or more,
+        # and bundles share the VAE's and the towers'
+        args = [jnp.zeros(tiny[a.shape]) if a.shape in tiny else a
+                for a in args]
+        key = (type(model).__name__, repr(model.cfg),
+               tuple((a.shape, str(a.dtype)) for a in args))
+        if key not in _TEMPLATES:
+            _TEMPLATES[key] = _jax_template(model, *args)
+        return _TEMPLATES[key]
 
     monkeypatch.setattr(JLOADER, "_template", tiny_template)
-    return JLOADER.load_sdxl_bundle(
-        files["model"], loras=[(files["lora"], LORA_WEIGHT)],
-        embedding_dir=files["emb"], policy=FP32_POLICY, use_cache=False)
+    kw = {"loras": [(files["lora"], LORA_WEIGHT)],
+          "embedding_dir": files["emb"], **kw}
+    return JLOADER.load_sdxl_bundle(files["model"], policy=FP32_POLICY,
+                                    use_cache=False, **kw)
 
 
 def _tiny_configs(mp):
     """The port's loader at the tiny configs: its config functions swapped
     through `mp`, a pytest MonkeyPatch."""
     mp.setattr(LOADER, "sdxl_base_unet_config", lambda: UNetConfig(**UNET_KW))
+    mp.setattr(LOADER, "sdxl_refiner_unet_config", lambda: UNetConfig(**REF_KW))
     mp.setattr(LOADER, "sdxl_vae_config", lambda: VAEConfig(**VAE_KW))
     mp.setattr(LOADER, "openclip_bigg_config",
                lambda: OpenCLIPTextConfig(**OC_KW))
@@ -345,7 +363,7 @@ def test_generate_over_http_from_the_config(files, monkeypatch, tmp_path):
                 init_image=init_img)
             np.testing.assert_array_equal(rgb, image_to_uint8(want[0][0]))
         call("/v1/generate", {"generator_model_type": "SDXL",
-                              "parameters": dict(params, sampler="LCM")})
+                              "parameters": dict(params, deep_cache=3)})
         done = drain()[-1]["job_done"]
         assert not done["ok"] and "NotImplementedError" in done["error"]
     finally:

@@ -108,7 +108,8 @@ def test_generate_round_trip(server):
 def test_unsupported_job_reports_failure(server):
     _call(server + "/v1/generate", {"generator_model_type": "SD 1.5",
                                     "prompt": "x", "H": 64, "W": 64,
-                                    "sampler": "PLMS", "safety_check": False})
+                                    "sampler": "Euler A", "deep_cache": 3,
+                                    "safety_check": False})
     done = _drain(server, 1)[-1]["job_done"]
     assert not done["ok"] and "NotImplementedError" in done["error"]
 
