@@ -53,13 +53,18 @@ is nonzero and no final line is printed:
    its default (on, the classifier loaded from SAFETY_CHECKER_PATH), the
    watermark on, the LoRA, a TI tag and a wildcard in the prompt, and the
    ControlNet on an uploaded control image; sent twice (the first run
-   loads the files). Checks: every weight on the card equals its file's
-   (per tensor; checksums per group reported), the LoRA moved exactly its
-   264 modules, each by the expected delta within one bf16 ulp; each PNG's
-   watermark decodes; each image's metadata carries its safety flag; the
-   K1 / K2 launches equal the counts derived from the module tree (the
-   ControlNet's calls in each of the 20 evaluations at batch 8, the safety
-   checker's 24 K1 calls per batch); a deny-listed prompt is refused;
+   loads the files), then once more without the LoRA and with
+   unet_quantize "float8_e4m3" (a new load). Checks: every weight on the
+   card equals its file's (per tensor; checksums per group reported), the
+   LoRA moved exactly its 264 modules, each by the expected delta within
+   one bf16 ulp; each PNG's watermark decodes; each image's metadata
+   carries its safety flag; the K1 / K2 launches equal the counts derived
+   from the module tree (the ControlNet's calls in each of the 20
+   evaluations at batch 8, the safety checker's 24 K1 calls per batch); a
+   deny-listed prompt is refused; the float8_e4m3 UNet's 8-bit weights
+   equal io/quantize.py's codes and scales of the file's tensors, the
+   others the file's, and its request's images are non-constant with the
+   same launches;
 11. sdxl: SDXL base as the JAX package benchmarks it (bench_sdxl: 1024^2,
    30 steps of EulerEDMSampler on LegacyDDPMDiscretization, CFG 7.0,
    batch 1), at full width and depth from seeded random fp16 files under
@@ -94,16 +99,39 @@ is nonzero and no final line is printed:
    K1 / K2 launches equal the module tree's count (the refiner's 88 / 56
    per evaluation) and the recorded shapes' sum; the refiner UNet in bf16
    against fp32 through the plain versions, on the card;
-13. new paths' shapes: hooks record the shape of every K1 and K2 call of
+13. flux: FLUX.1-schnell as the JAX package benchmarks it (bench_flux:
+   1024^2, 4 flow-Euler steps, batch 1, the transformer and T5 in
+   fp8-e4m3; the T5 context at the conditioner's 256 tokens), from
+   seeded random bf16 files at full width and depth under build/flux/
+   (34 GB; refused without the free disk): the BFL transformer (19
+   double and 38 single blocks, hidden 3072, 24 heads of 128), HF's
+   T5-XXL encoder, BFL's ae.safetensors (no quant convs), HF's CLIP-L and
+   a synthetic spiece.model. The --config server serves with
+   generator_model_type "FLUX.1-schnell": with flux_quantize
+   "float8_e4m3" a warm-up (the load), the job twice (timed), once more
+   with the shape hooks; with "none" (bf16) and "int8" a load and one
+   timed request each. The server passes no T5 tokenizer, as the JAX
+   backend does, so its T5 context is zeros; T5-XXL then runs once at
+   full width through `load_flux_bundle(t5_tokenize=<a callable>)` and
+   one FluxPipeline request. Checks: every weight equals its file's, or
+   its 8-bit codes and scale equal io/quantize.py's of the file's
+   tensor; deep_cache is refused; images finite, non-constant, 1024^2;
+   the K1 / K2 launches equal the module tree's count (one K1 call per
+   block a step, the decoder's attention and GroupNorms) and the
+   recorded shapes' sum; the served T5 context zeros, the T5 run's
+   finite and not zeros; the full-width transformer's velocity in fp8
+   and int8 against bf16's, and one double and one single block in bf16
+   (K1) against fp32 (the plain versions), on the card;
+14. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
-   sd15_full and of sdxl's and sdxl_modes' requests (the recorded calls
+   sd15_full, of sdxl's and sdxl_modes' requests and of flux's (the recorded calls
    must add up to the launch counts), and the same checks as 4 and 5 run
    at every shape the main path's rows do not hold (the safety checker's
    d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
-   refiner's at 12 and 24 among them), and at K2's H*W % 8 != 0 cases
+   refiner's at 12 and 24 among them, FLUX's d = 128), and at K2's H*W % 8 != 0 cases
    (K2_ANY_HW); each row lists the paths that run its shape with their
    calls per request;
-14. the kernels line (per-request totals over the main path's shapes, as
+15. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -140,7 +168,7 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=300, sd15_full=480,
-                sdxl=600, sdxl_modes=720, new_shapes=480)
+                sdxl=600, sdxl_modes=720, flux=900, new_shapes=480)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -254,10 +282,12 @@ def ptxas_summary(log: str) -> dict:
 @contextlib.contextmanager
 def recording(*models):
     """While open, count the K1 and K2 calls of the models (bundles: their
-    UNets, VAEs and ControlNets; or modules, such as the safety checker)
+    UNets, VAEs and ControlNets, or a FLUX bundle's transformer and VAE;
+    or modules, such as the safety checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.clip import CLIPAttention
+    from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
@@ -286,10 +316,19 @@ def recording(*models):
             b, n, c = x.shape
             add(attn, (b, n, n, mod.heads, c // mod.heads))
 
+    def on_flux(mod, args):        # joint attention over [txt; img]: K1
+        n = sum(a.shape[1] for a in args[:2 if isinstance(mod, DoubleBlock)
+                                         else 1])
+        add(attn, (args[0].shape[0], n, n, mod.cfg.num_heads, mod.cfg.head_dim))
+
     hooks = []
     for model in models:
-        parts = ([model.unet, model.vae, getattr(model, "controlnet", None)]
-                 if hasattr(model, "unet") else [model])
+        if hasattr(model, "unet"):
+            parts = [model.unet, model.vae, getattr(model, "controlnet", None)]
+        elif hasattr(model, "vae"):        # a FLUX bundle
+            parts = [model.model, model.vae]
+        else:
+            parts = [model]
         for m in (m for part in parts if part is not None
                   for m in part.modules()):
             if isinstance(m, CrossAttention):
@@ -300,6 +339,8 @@ def recording(*models):
                 hooks.append(m.register_forward_pre_hook(on_gn))
             elif isinstance(m, CLIPAttention):
                 hooks.append(m.register_forward_pre_hook(on_clip))
+            elif isinstance(m, (DoubleBlock, SingleBlock)):
+                hooks.append(m.register_forward_pre_hook(on_flux))
     try:
         yield attn, gn, weight
     finally:
@@ -1162,6 +1203,17 @@ def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
         with recording(safety.classifier.model) as (attn1, gn1, _):
             _, flags1 = safety.check(imgs01[:1])
         shapes["safety batch 1"] = (attn1, gn1)
+        # unet_quantize: a new load with the UNet's linear weights in
+        # float8_e4m3, coded from the file's tensors as they load (no LoRA)
+        reset_counts()
+        t1 = time.perf_counter()
+        client.generate("text_to_image", dict(
+            {k: v for k, v in params.items() if not k.startswith("lora_")},
+            seed=502, unet_quantize="float8_e4m3"))
+        q_images = served_images(client.drain(1))
+        q_wall = time.perf_counter() - t1
+        q_counts = read_counts()
+        q_bundle = srv.worker._backends["SD 1.5"].resident.instance.bundle
     finally:
         srv.stop()
         if old_env is None:
@@ -1171,6 +1223,9 @@ def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
 
     weights = check_weights(bundle, safety.classifier.model, truth, cfgs["unet"])
     emit(weights)
+    q_weights = check_coded("sd15_full_fp8_weights", "float8_e4m3",
+                            {"unet": (q_bundle.unet, truth["unet"])})
+    emit(q_weights)
     n_safety = count(safety.classifier.model, CLIPAttention)
     want_k1, want_k2 = kernel_calls(bundle, steps, 0, 1)
     want_k1 += steps * count(bundle.controlnet, CrossAttention) + n_safety
@@ -1193,10 +1248,21 @@ def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
                expected_flash_attention=want_k1,
                expected_group_norm_silu=want_k2,
                safety_checker_k1_per_batch=n_safety,
-               recorded_calls=[sum(attn.values()), sum(gn.values())])
+               recorded_calls=[sum(attn.values()), sum(gn.values())],
+               fp8=dict(seconds_with_load=q_wall,
+                        quantize=q_bundle.load_report["quantize"],
+                        images=[list(p.shape) for p, _ in q_images],
+                        pixel_std=[float(np.std(p.astype(np.float32)))
+                                   for p, _ in q_images],
+                        flash_attention_launches=q_counts[0],
+                        group_norm_silu_launches=q_counts[1]))
     emit(row)
     if len(images) != batch or any(p.shape != (res, res, 3) for p, _ in images):
         raise AssertionError(f"sd15_full: images {row['images']}")
+    if len(q_images) != batch or min(row["fp8"]["pixel_std"]) <= 0.0 or \
+            not q_weights["groups"]["unet"]["eight_bit"] or \
+            tuple(q_counts) != (want_k1, want_k2):
+        raise AssertionError(f"sd15_full: the float8_e4m3 request: {row['fp8']}")
     if min(row["pixel_std"]) <= 0.0:
         raise AssertionError("sd15_full: a constant image")
     if any(m != WATERMARK for m in marks):
@@ -1213,7 +1279,7 @@ def sd15_full(dev, card, root: Path, res=RES, steps=STEPS, batch=BATCH,
         raise AssertionError(f"sd15_full: kernel launches {(k1, k2)}, derived "
                              f"{(want_k1, want_k2)}, recorded "
                              f"{row['recorded_calls']} differ")
-    return rows + [weights, row], shapes, (k1, k2)
+    return rows + [weights, q_weights, row], shapes, (k1, k2)
 
 
 # SDXL: the JAX package's bench_sdxl job (1024^2, 30 steps of
@@ -1819,6 +1885,559 @@ def sdxl_modes(dev, card, root: Path, base: dict, res=SDXL_RES,
     return rows, shapes, launches
 
 
+# flux: bench_flux's job (1024^2, 4 flow-Euler steps, batch 1), the T5
+# context at the FluxConditioner's 256 tokens
+FLUX_RES, FLUX_STEPS, FLUX_REQUESTS, FLUX_T5_LEN = 1024, 4, 2, 256
+FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon"
+FLUX_FILES_GB = 36          # free disk the four files need, with room
+# the full-width velocity's relative L2 off bf16's: each about 2.5x the
+# readings of the sound runs (NVIDIA H100 80GB HBM3, 700.00 W)
+FLUX_VELOCITY_TOL = {"float8_e4m3": 0.1, "int8": 0.06}
+FLUX_WORDS = ("a photograph of an astronaut riding horse on the moon quick "
+              "brown fox jumps over lazy dog").split()
+
+
+def flux_configs():
+    """The published FLUX.1-schnell, T5-XXL, CLIP-L and FLUX VAE widths and
+    depths, in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.clip import CLIPTextConfig
+    from cremage_tpu_torch.models.flux import flux_schnell_config
+    from cremage_tpu_torch.models.t5 import t5_xxl_config
+    from cremage_tpu_torch.models.vae import flux_vae_config
+
+    bf16 = torch.bfloat16
+    return dict(flux=flux_schnell_config(dtype=bf16), t5=t5_xxl_config(dtype=bf16),
+                clip=CLIPTextConfig(dtype=bf16), vae=flux_vae_config(dtype=bf16))
+
+
+def spiece_model(words=FLUX_WORDS) -> bytes:
+    """A synthetic unigram `spiece.model` (protobuf ModelProto): <pad>,
+    </s>, <unk>, then each word with and without the U+2581 prefix and
+    every character, scored by length."""
+    import struct
+
+    def varint(v):
+        out = b""
+        while True:
+            b, v = v & 0x7F, v >> 7
+            if not v:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+
+    def field(num, wire, payload):
+        return varint((num << 3) | wire) + payload
+
+    def ld(num, payload):
+        return field(num, 2, varint(len(payload)) + payload)
+
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2)]
+    seen = {p for p, _, _ in pieces}
+    for w in list(words) + sorted(set("".join(words))):
+        for p in ("▁" + w, w):
+            if p not in seen:
+                seen.add(p)
+                pieces.append((p, -1.0 / len(p) - 1.0, 1))
+    blob = b"".join(ld(1, ld(1, p.encode()) + field(2, 5, struct.pack("<f", sc))
+                       + field(3, 0, varint(t))) for p, sc, t in pieces)
+    blob += ld(2, field(3, 0, varint(1)) + field(40, 0, varint(2))
+               + field(41, 0, varint((1 << 64) - 1)) + field(42, 0, varint(1))
+               + field(43, 0, varint(0)))
+    return blob + ld(3, field(3, 0, varint(1)) + field(4, 0, varint(1))
+                     + field(5, 0, varint(1)))
+
+
+def write_seeded_safetensors(path: Path, shapes: dict, dev, seed: int,
+                             tables=(), ties=None, extra=None):
+    """A .safetensors file of seeded random bf16 tensors, made on `dev` one
+    at a time and streamed to disk (a 24 GB file never sits in host
+    memory): weights N(0, 1 / (3 fan_in)) (the variance of torch's default
+    Linear init), 1-D weights and scales 1 + 0.02 N, biases 0.02 N, the
+    gather tables named by `tables` N(0, 1) and other tables 0.02 N.
+    `ties` ({key: source key}) repeats a tensor's bytes under another key;
+    `extra` ({key: CPU tensor}) is written as it is. -> seconds."""
+    import struct
+
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+
+    ties, extra = ties or {}, extra or {}
+    specs = {k: ("BF16", tuple(v), 2) for k, v in shapes.items()}
+    for k, t in extra.items():
+        specs[k] = (CK._NAMES[t.dtype], tuple(t.shape), t.element_size())
+    header, off = {}, 0
+    for k, (dt, shape, size) in specs.items():
+        n = size
+        for d in shape:
+            n *= d
+        header[k] = {"dtype": dt, "shape": list(shape),
+                     "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kept = {}
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for k, (_, shape, _) in specs.items():
+            if k in extra:
+                f.write(extra[k].contiguous().view(torch.uint8).numpy().tobytes())
+                continue
+            if k in ties:
+                f.write(kept.pop(ties[k]))
+                continue
+            z = torch.randn(shape, device=dev, generator=g)
+            if len(shape) == 1:
+                z = (1.0 + 0.02 * z) if not k.endswith("bias") else 0.02 * z
+            elif any(t in k for t in tables):
+                pass
+            elif "embedding" in k or "relative_attention_bias" in k:
+                z = 0.02 * z
+            else:
+                fan_in = 1
+                for d in shape[1:]:
+                    fan_in *= d
+                z = z / (3 * fan_in) ** 0.5
+            data = z.to(torch.bfloat16).view(torch.uint8).cpu().numpy().tobytes()
+            if k in ties.values():
+                kept[k] = data
+            f.write(data)
+            del z, data
+    return time.perf_counter() - t0
+
+
+def write_flux_files(root: Path, dev, cfgs: dict):
+    """FLUX.1-schnell as published, from seeded random bf16 tensors under
+    `root`: the BFL transformer (bare keys), HF's T5 encoder (encoder.,
+    block 0's bias table, the tied embed_tokens), BFL's ae.safetensors (no
+    quant convs), HF's CLIP-L (text_model., position_ids), a synthetic
+    spiece.model and a config.yaml. Refuses to start without FLUX_FILES_GB
+    of free disk. -> (paths, {file: seconds})."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.models.clip import CLIPTextModel
+    from cremage_tpu_torch.models.flux import FluxModel
+    from cremage_tpu_torch.models.t5 import T5Encoder
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < FLUX_FILES_GB:
+        raise RuntimeError(f"flux: {free:.1f} GB free under {root}, the "
+                           f"files need {FLUX_FILES_GB} GB")
+
+    def shapes(cls, cfg, rename=lambda k: k):
+        with torch.device("meta"):
+            return {rename(k): tuple(v.shape)
+                    for k, v in cls(cfg).state_dict().items()}
+
+    def hf_t5(k):
+        if k == "shared.weight":
+            return k
+        if k == "relative_attention_bias.weight":
+            return "encoder." + CK.T5_BIAS_KEY
+        return "encoder." + k
+
+    t5 = shapes(T5Encoder, cfgs["t5"], hf_t5)
+    t5["encoder.embed_tokens.weight"] = t5["shared.weight"]
+    clip = shapes(CLIPTextModel, cfgs["clip"], lambda k: "text_model." + k)
+    paths = {k: root / n for k, n in (
+        ("ckpt", "flux1-schnell.safetensors"), ("t5", "t5xxl_encoder.safetensors"),
+        ("vae", "ae.safetensors"), ("clip", "clip_l.safetensors"),
+        ("spiece", "spiece.model"), ("config", "config.yaml"))}
+    seconds = {
+        "ckpt": write_seeded_safetensors(
+            paths["ckpt"], shapes(FluxModel, cfgs["flux"]), dev, 50),
+        # embed_tokens is the tied copy of shared, as published
+        "t5": write_seeded_safetensors(
+            paths["t5"], t5, dev, 51, tables=("shared",),
+            ties={"encoder.embed_tokens.weight": "shared.weight"}),
+        "vae": write_seeded_safetensors(
+            paths["vae"], shapes(AutoencoderKL, cfgs["vae"]), dev, 52),
+        "clip": write_seeded_safetensors(
+            paths["clip"], clip, dev, 53, extra={
+                "text_model." + CK.POSITION_IDS: torch.arange(77)[None]}),
+    }
+    paths["spiece"].write_bytes(spiece_model())
+    paths["config"].write_text(f"ldm_model_path: '{root}'\n")
+    return {k: str(v) for k, v in paths.items()}, seconds
+
+
+def check_flux_weights(bundle, paths, quantize):
+    """check_coded over the FLUX bundle's four files."""
+    from cremage_tpu_torch.io import checkpoint as CK
+
+    return check_coded("flux_weights", quantize, {
+        "flux": (bundle.model, CK.load_safetensors(paths["ckpt"])),
+        "t5": (bundle.conditioner.t5, CK.t5_encoder_state_dict(
+            CK.load_safetensors(paths["t5"]))),
+        "vae": (bundle.vae, CK.load_safetensors(paths["vae"])),
+        "clip": (bundle.conditioner.clip_l, CK.component_state_dict(
+            CK.load_safetensors(paths["clip"]), "text_model.")),
+    })
+
+
+def check_coded(phase, quantize, groups):
+    """Every tensor of each model of `groups` ({group: (model, its file's
+    state dict)}) on the card against its file's: equal, or, for the
+    8-bit weights, equal to io/quantize.py's codes and scale of the file's
+    tensor in the model's dtype (JAX quantizes its parameters in their
+    param dtype: an fp16 file's weights are rounded to bf16 first). -> a
+    row of counts per group."""
+    import torch
+
+    from cremage_tpu_torch.io.quantize import coded_weights, quantize_weight
+
+    row = dict(phase=phase, quantize=quantize, groups={})
+    for group, (model, sd) in groups.items():
+        state = model.state_dict()
+        scales = coded_weights(state)
+        derived = set(scales.values())
+        coded = equal = 0
+        for k, p in state.items():
+            if k in derived:
+                continue
+            want = sd[k].to(p.device)
+            if k in scales:
+                codes, scale = quantize_weight(want.to(model.cfg.dtype),
+                                               quantize)
+                ok = (torch.equal(p.view(torch.uint8), codes.view(torch.uint8))
+                      and torch.equal(state[scales[k]], scale))
+                coded += 1
+            else:
+                ok = torch.equal(p, want.to(p.dtype))
+                equal += 1
+            if not ok:
+                raise AssertionError(f"{phase} {quantize}: {group}.{k} "
+                                     "differs from its file")
+        row["groups"][group] = dict(tensors=coded + equal, equal=equal,
+                                    eight_bit=coded)
+    return row
+
+
+def flux_kernel_calls(bundle, steps: int, decodes: int = 1):
+    """(K1, K2) launches of a FLUX request from the module tree: one K1
+    call per double and single block each step, one per VAE decoder
+    attention and one K2 per decoder GroupNorm each decode (CLIP's
+    causal attention and T5's biased one take the plain path)."""
+    from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.vae import AttnBlock
+
+    blocks = count(bundle.model, DoubleBlock) + count(bundle.model, SingleBlock)
+    return (steps * blocks + decodes * count(bundle.vae.decoder, AttnBlock),
+            decodes * count(bundle.vae.decoder, GroupNorm))
+
+
+def flux_velocity(model, dev):
+    """The transformer's velocity at one seeded full-size input (the 4096
+    image tokens of 1024^2, the 256 T5 tokens), float32 on the CPU."""
+    import torch
+
+    from cremage_tpu_torch.models.flux import make_position_ids
+
+    g = torch.Generator(device=dev).manual_seed(54)
+    x = torch.randn(1, 4096, 64, device=dev, generator=g)
+    txt = torch.randn(1, FLUX_T5_LEN, 4096, device=dev, generator=g)
+    vec = torch.randn(1, 768, device=dev, generator=g)
+    txt_ids, img_ids = make_position_ids(64, 64, FLUX_T5_LEN)
+    with torch.no_grad():
+        return model(x, txt, torch.tensor([0.75], device=dev), vec, img_ids,
+                     txt_ids).float().cpu()
+
+
+def check_flux_blocks(model, dev):
+    """One double and one single block of the full-width transformer in
+    bf16 through K1 against the same weights in float32 through the plain
+    versions, on the card, at the 1024^2 request's token counts."""
+    import copy
+
+    import torch
+
+    from cremage_tpu_torch.models.flux import make_position_ids
+
+    cfg = model.cfg
+    g = torch.Generator(device=dev).manual_seed(55)
+    img = torch.randn(1, 4096, cfg.hidden_size, device=dev, generator=g)
+    txt = torch.randn(1, FLUX_T5_LEN, cfg.hidden_size, device=dev, generator=g)
+    vec = torch.randn(1, cfg.hidden_size, device=dev, generator=g)
+    txt_ids, img_ids = make_position_ids(64, 64, FLUX_T5_LEN)
+    freqs = model.freqs(img_ids, txt_ids, dev)
+    rows = []
+    for name, blk, args in (
+            ("double", model.double_blocks[0], (img, txt)),
+            ("single", model.single_blocks[0], (torch.cat([txt, img], 1),))):
+        ref = copy.deepcopy(blk).float()
+        with torch.no_grad():
+            got = blk(*[a.bfloat16() for a in args], vec.bfloat16(), freqs)
+            with plain_kernels():
+                want = ref(*args, vec, freqs)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rel = max(float((a.float() - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+        rows.append(dict(block=name, max_rel_err=rel))
+        del ref
+    # bf16 rounds each of the block's ~10 products and its residual adds to
+    # 2^-9 relative; their errors add along the block: a few 1e-2 of range
+    tol = 5e-2
+    row = dict(phase="flux_blocks_bf16_vs_fp32", rows=rows, tol=tol)
+    emit(row)
+    if not all(r["max_rel_err"] <= tol for r in rows):
+        raise AssertionError(f"flux blocks bf16 vs fp32: {rows}")
+    return row
+
+
+def flux_t5(dev, card, paths, res, steps):
+    """T5-XXL at full width, once: the four files through
+    `load_flux_bundle` with a T5 tokenizer callable (the synthetic
+    spiece.model's; the HTTP path passes none, as the JAX backend does),
+    and one FluxPipeline request in the default fp8-e4m3 storage. -> the
+    row: load seconds, the conditioner's seconds (CLIP-L and T5), the
+    request's, its launches against the module tree's count (T5's biased
+    attention takes no kernel), the T5 context's range."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.core.config import GenerationOptions
+    from cremage_tpu_torch.pipelines.flux import FluxPipeline
+    from cremage_tpu_torch.pipelines.loader import load_flux_bundle
+    from cremage_tpu_torch.prompt.sentencepiece import T5Tokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokenize = T5Tokenizer(Path(paths["spiece"]).read_bytes()).tokenize_fn(
+        FLUX_T5_LEN)
+    t0 = time.perf_counter()
+    bundle = load_flux_bundle(paths["ckpt"], vae_ckpt=paths["vae"],
+                              clip_ckpt=paths["clip"], t5_ckpt=paths["t5"],
+                              t5_tokenize=tokenize, device=dev)
+    load_s = time.perf_counter() - t0
+    pipe = FluxPipeline(bundle, device=dev)
+    t5_out = []
+    hook = bundle.conditioner.t5.register_forward_hook(
+        lambda m, a, out: t5_out.append(out.detach().float()))
+    try:
+        bundle.conditioner.encode(FLUX_PROMPT)          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bundle.conditioner.encode(FLUX_PROMPT)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        out = pipe.generate(GenerationOptions(
+            prompt=FLUX_PROMPT, H=res, W=res, sampling_steps=steps,
+            n_samples=1, n_iter=1, seed=3, safety_check=False,
+            watermark=False))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        hook.remove()
+    txt = t5_out[-1]
+    img = out[0][0]
+    want = flux_kernel_calls(bundle, steps)
+    row = dict(phase="flux_t5", card=card, load_seconds=load_s,
+               conditioner_seconds=encode_s, seconds=wall,
+               t5_context=list(txt.shape), t5_finite=bool(torch.isfinite(txt).all()),
+               t5_abs_max=float(txt.abs().max()),
+               image=list(img.shape), image_finite=bool(np.isfinite(img).all()),
+               pixel_std=float(np.std(img)),
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    d_model = bundle.conditioner.t5.cfg.d_model
+    del pipe, bundle, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if row["t5_context"] != [1, FLUX_T5_LEN, d_model] or not row["t5_finite"] \
+            or row["t5_abs_max"] <= 0.0 or row["image"] != [res, res, 3] \
+            or not row["image_finite"] or row["pixel_std"] <= 0.0:
+        raise AssertionError(f"flux_t5: {row}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"flux_t5: kernel launches {launches} != "
+                             f"derived {want}")
+    return row
+
+
+def flux(dev, card, root: Path, res=FLUX_RES, steps=FLUX_STEPS,
+         requests=FLUX_REQUESTS, check_model=True):
+    """The phase flux: FLUX.1-schnell from full-width files through
+    /v1/generate (bench_flux's job) with flux_quantize float8_e4m3 (the
+    default: a warm-up that loads, `requests` timed requests, one with the
+    shape hooks), "none" (bf16) and "int8" (a load, then one timed
+    request each). -> (rows, {path: (K1 shapes, K2 shapes)}, launches of
+    the timed fp8 requests)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfgs = flux_configs()
+    paths, seconds = write_flux_files(root, dev, cfgs)
+    rows = [dict(phase="flux_files", seconds=seconds,
+                 resident_bytes_before=torch.cuda.memory_allocated(),
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()})]
+    emit(rows[0])
+    srv = build_server(["--config", paths["config"], "--port", "0"])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    job = {"prompt": FLUX_PROMPT, "H": res, "W": res, "sampling_steps": steps,
+           "n_samples": 1, "n_iter": 1, "safety_check": False,
+           "watermark": False, "ckpt": paths["ckpt"], "vae_ckpt": paths["vae"],
+           "clip_ckpt": paths["clip"], "t5_ckpt": paths["t5"]}
+    finite, velocity, shapes, runs, served_txt = [], {}, {}, {}, {}
+
+    def resident():
+        return srv.worker._backends["FLUX.1-schnell"].resident.instance.bundle
+
+    def run(params, record=False):
+        """-> (seconds, (K1, K2), images, finite decodes, shapes)."""
+        finite.clear()
+        hooks = [resident().vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        ] if srv.worker._backends["FLUX.1-schnell"].resident.instance else []
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            rec = (stack.enter_context(recording(resident()))
+                   if record else None)
+            t1 = time.perf_counter()
+            client.generate("text_to_image", params, "FLUX.1-schnell")
+            images = served_images(client.drain(1))
+            wall = time.perf_counter() - t1
+        for h in hooks:
+            h.remove()
+        return wall, read_counts(), images, list(finite), rec and rec[:2]
+
+    loads = {}
+    try:
+        refused = expect_refused(client, dict(job, deep_cache=3),
+                                 "an unported option", "FLUX.1-schnell")
+        for quantize in ("float8_e4m3", "none", "int8"):
+            params = dict(job, flux_quantize=quantize, seed=1)
+            first = run(params)
+            bundle = resident()
+            loads[quantize] = dict(
+                first_run_seconds=first[0],
+                resident_bytes=torch.cuda.memory_allocated(),
+                quantize=bundle.load_report.get("quantize"),
+                files={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9)
+                               / 1e9)
+                       for k, v in bundle.load_report["files"].items()})
+            rows.append(check_flux_weights(bundle, paths, quantize))
+            emit(rows[-1])
+            served_txt[quantize] = dict(
+                t5_loaded=bundle.conditioner.t5 is not None,
+                tokenizer=bundle.conditioner.t5_tokenize is not None,
+                txt_abs_max=float(bundle.conditioner.encode(
+                    FLUX_PROMPT)["txt"].abs().max()))
+            if quantize == "float8_e4m3":
+                reset_counts()
+                t1 = time.perf_counter()
+                finite.clear()
+                hook = bundle.vae.decoder.register_forward_hook(
+                    lambda m, a, out: finite.append(
+                        bool(torch.isfinite(out).all())))
+                for r in range(requests):
+                    client.generate("text_to_image", dict(params, seed=10 + r),
+                                    "FLUX.1-schnell")
+                images = served_images(client.drain(requests))
+                wall = time.perf_counter() - t1
+                launches, decodes = read_counts(), list(finite)
+                hook.remove()
+                runs["flux 1024^2"] = run(dict(params, seed=12), record=True)
+                shapes["flux 1024^2"] = runs["flux 1024^2"][4]
+            else:
+                runs[f"flux {quantize}"] = run(dict(params, seed=13))
+            if check_model:
+                velocity[quantize] = flux_velocity(bundle.model, dev)
+                if quantize == "none":
+                    rows.append(check_flux_blocks(bundle.model, dev))
+            del bundle
+    finally:
+        srv.stop()
+    want = [requests * k for k in flux_kernel_calls(resident(), steps)]
+    held = srv.worker._backends["FLUX.1-schnell"].resident
+    held.key = held.instance = None         # free the served bundle
+    t5_row = flux_t5(dev, card, paths, res, steps)
+    pixel_std = [float(np.std(p.astype(np.float32))) for p, _ in images]
+    row = dict(phase="flux", card=card, steps=steps, batch=1,
+               t5_len=FLUX_T5_LEN, quantize="float8_e4m3", requests=requests,
+               seconds=wall, seconds_per_request=wall / requests,
+               images_per_s=len(images) / wall, loads=loads,
+               images=[list(p.shape) for p, _ in images], pixel_std=pixel_std,
+               decodes_finite=decodes, refused=refused,
+               served_t5_context=served_txt,
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    if check_model:
+        ref = velocity["none"]
+        row["velocity_vs_bf16"] = {
+            q: dict(rel_l2=float((v - ref).norm() / ref.norm()),
+                    max_rel=float((v - ref).abs().max() / ref.abs().max()))
+            for q, v in velocity.items() if q != "none"}
+    emit(row)
+    if len(images) != requests or any(p.shape != (res, res, 3)
+                                      for p, _ in images) or \
+            decodes != [True] * requests or min(pixel_std) <= 0.0:
+        raise AssertionError(f"flux: images {row['images']}, finite decodes "
+                             f"{decodes}, pixel std {pixel_std}")
+    if "NotImplementedError" not in (refused or ""):
+        raise AssertionError(f"flux: deep_cache not refused: {refused}")
+    if any(not v["t5_loaded"] or v["tokenizer"] or v["txt_abs_max"] != 0.0
+           for v in served_txt.values()):
+        raise AssertionError(f"flux: the served T5 context is not the JAX "
+                             f"backend's zeros: {served_txt}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"flux: kernel launches {launches} != derived "
+                             f"{want}")
+    # weight-only fp8 keeps 3 mantissa bits (2^-4 relative a weight), int8
+    # about 2^-8 of each row's max plus the activations' codes: the sound
+    # runs read 4.11e-2 (fp8) and 2.02e-2 (int8) relative L2 off bf16's,
+    # and a wrong scale or product on a few layers moves it past these
+    if check_model and not all(
+            v["rel_l2"] <= FLUX_VELOCITY_TOL[q] and np.isfinite(v["max_rel"])
+            for q, v in row["velocity_vs_bf16"].items()):
+        raise AssertionError(f"flux: 8-bit velocity off bf16's: "
+                             f"{row['velocity_vs_bf16']}")
+    rows += [row, t5_row]
+    for name, (sec, (k1, k2), imgs, fin, rec) in runs.items():
+        r = dict(phase="flux_request", request=name, card=card, seconds=sec,
+                 images=[list(p.shape) for p, _ in imgs], decodes_finite=fin,
+                 flash_attention_launches=k1, group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0] // requests,
+                 expected_group_norm_silu=want[1] // requests)
+        if rec is not None:
+            r["recorded_calls"] = [sum(rec[0].values()), sum(rec[1].values())]
+        emit(r)
+        if len(imgs) != 1 or imgs[0][0].shape != (res, res, 3) or fin != [True]:
+            raise AssertionError(f"{name}: images {r['images']}")
+        if (k1, k2) != (r["expected_flash_attention"],
+                        r["expected_group_norm_silu"]) or (
+                rec is not None and tuple(r["recorded_calls"]) != (k1, k2)):
+            raise AssertionError(f"{name}: kernel launches {(k1, k2)}, "
+                                 f"derived {want}, recorded "
+                                 f"{r.get('recorded_calls')}")
+        rows.append(r)
+    return rows, shapes, launches
+
+
 def full_configs():
     """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
     UNet's encoder on 4 latent channels) and the CompVis safety checker,
@@ -1948,6 +2567,14 @@ def main() -> int:
     finally:
         shutil.rmtree(sdxl_root, ignore_errors=True)
     paths.update(xl_mode_paths)
+    torch.cuda.empty_cache()
+    watchdog("flux")
+    flux_root = REPO / "build" / "flux"
+    try:
+        _, flux_paths, flux_launches = flux(dev, card, flux_root)
+    finally:
+        shutil.rmtree(flux_root, ignore_errors=True)
+    paths.update(flux_paths)
     paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
     torch.cuda.empty_cache()
     watchdog("new_shapes")
@@ -1965,7 +2592,8 @@ def main() -> int:
                 "samplers": sum(r[key] for r in sampler_rows),
                 "sd15_full": full_launches[key.startswith("group")],
                 "sdxl": sdxl_launches[key.startswith("group")],
-                "sdxl_modes": xl_mode_launches[key.startswith("group")]}
+                "sdxl_modes": xl_mode_launches[key.startswith("group")],
+                "flux": flux_launches[key.startswith("group")]}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

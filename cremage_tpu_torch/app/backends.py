@@ -17,8 +17,17 @@ mode "inpainting" with sdxl_ldm_inpaint_model set, that 9-channel model;
 without it the base model inpaints), with the job's standalone VAE,
 refiner (`refiner_ckpt`), LoRAs (UNet, te1, te2) and TI directory (the
 job's, else sdxl_embedding_path). Pass both factories one
-`ResidentInstance` and one model of either family stays resident. 8-bit
-storage and auto face fix are not ported yet (the pipeline refuses them).
+`ResidentInstance` and one model of either family stays resident. Auto
+face fix is not ported yet (the pipeline refuses it). Both read
+`unet_quantize` ("float8_e4m3", "float8_e5m2"; "int8" is refused) as the
+JAX backends do: 8-bit storage of the UNets' linear weights.
+
+`flux_factory(prefs)` is the factory of the "FLUX.1-schnell" model type:
+the job names the four files (`ckpt`: the BFL transformer, `vae_ckpt`,
+`clip_ckpt`, `t5_ckpt`) and `flux_quantize` ("float8_e4m3" by default,
+"float8_e5m2", "int8", "none"), as in the JAX backend. Like it, the
+factory passes no T5 tokenizer, so the T5 context of a served request is
+zeros whatever the files (pipelines/flux.py `FluxConditioner`).
 """
 from __future__ import annotations
 
@@ -87,12 +96,13 @@ def sdxl_factory(prefs: Preferences, device=None,
         embedding_dir = (opts.embedding_path or prefs.sdxl_embedding_path
                          or None)
         refiner = opts.refiner_ckpt or None
+        quantize = opts.extra.get("unet_quantize") or None
         key = ("sdxl", ckpt, opts.vae_ckpt or None, refiner, tuple(loras),
-               embedding_dir, inpaint)
+               embedding_dir, inpaint, quantize)
         return resident.get(key, lambda: SDXLPipeline(load_sdxl_bundle(
             ckpt, vae_ckpt=opts.vae_ckpt or None, refiner_ckpt=refiner,
             loras=loras, embedding_dir=embedding_dir, inpainting=inpaint,
-            device=device), device=device))
+            device=device, quantize_unet=quantize), device=device))
 
     def factory():
         def generate(params, status_cb, result_cb):
@@ -114,7 +124,7 @@ def sd15_factory(prefs: Preferences, device=None,
     bundle of each job from the files the job and `prefs` name."""
     from cremage_tpu_torch.io.lora import parse_lora_option_string
     from cremage_tpu_torch.pipelines.loader import load_sd15_bundle
-    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline
+    from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, check_supported
 
     resident = resident or ResidentInstance()
 
@@ -125,22 +135,58 @@ def sd15_factory(prefs: Preferences, device=None,
             "ldm_inpaint_model" if inpaint else "ldm_model")
         loras = parse_lora_option_string(opts.lora_models, opts.lora_weights)
         embedding_dir = opts.embedding_path or prefs.embedding_path or None
+        quantize = opts.extra.get("unet_quantize") or None
         key = ("sd15", ckpt, opts.vae_ckpt or None, tuple(loras),
-               embedding_dir, inpaint, opts.control_net or None)
+               embedding_dir, inpaint, opts.control_net or None, quantize)
         return resident.get(key, lambda: SD15Pipeline(load_sd15_bundle(
             ckpt, vae_ckpt=opts.vae_ckpt or None, loras=loras,
             embedding_dir=embedding_dir, inpainting=inpaint,
-            control_ckpt=opts.control_net or None, device=device),
-            device=device))
+            control_ckpt=opts.control_net or None, device=device,
+            quantize_unet=quantize), device=device))
 
     def factory():
         def generate(params, status_cb, result_cb):
             opts = GenerationOptions.from_dict(params)
+            check_supported(opts)       # before a model is loaded for it
             pipe_for(opts).generate(
                 opts, status_cb=status_cb, result_cb=result_cb,
                 init_image=load_image(params, "init_img"),
                 mask_image=load_image(params, "mask_img"),
                 control_image=load_image(params, "control_image_path"))
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+def flux_factory(prefs: Preferences, device=None,
+                 resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for FLUX.1
+    jobs, loading the bundle from the files the job names; the resident
+    key is JAX's (the files and flux_quantize)."""
+    from cremage_tpu_torch.pipelines.flux import FluxPipeline, check_supported
+    from cremage_tpu_torch.pipelines.loader import load_flux_bundle
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            if not opts.ckpt or not os.path.exists(opts.ckpt):
+                raise FileNotFoundError(
+                    "FLUX needs local weight files: pass 'ckpt' (the BFL "
+                    "transformer .safetensors) plus vae_ckpt, clip_ckpt and "
+                    "t5_ckpt")
+            check_supported(opts)       # before a model is loaded for it
+            quantize = params.get("flux_quantize", "float8_e4m3")
+            key = ("flux", opts.ckpt, opts.vae_ckpt, params.get("clip_ckpt"),
+                   params.get("t5_ckpt"), quantize)
+            pipe = resident.get(key, lambda: FluxPipeline(load_flux_bundle(
+                opts.ckpt, vae_ckpt=opts.vae_ckpt,
+                clip_ckpt=params.get("clip_ckpt"),
+                t5_ckpt=params.get("t5_ckpt"), quantize=quantize,
+                device=device), device=device))
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
         generate.resident = resident
         return generate
 

@@ -51,10 +51,13 @@
 // - The key tile is chosen per call (ops/flash_attention.py plan_flash): one
 //   80-key tile up to 80 keys (the 77-key cross-attention runs no rescale),
 //   otherwise 128.
-// - Head dims: 40 (as 48), 80 and 160 in the UNet, 512 in the VAE, and 64 in
+// - Head dims: 40 (as 48), 80 and 160 in the UNet, 512 in the VAE, 64 in
 //   the image safety checker's CLIP ViT-L/14 tower (257 tokens: two full
 //   128-key tiles and a ragged one of 1 key; 257 q rows over 192-row items
-//   leave a second item of 65 rows).
+//   leave a second item of 65 rows) and SDXL, and 128 in FLUX's joint
+//   attention (24 heads over 4352 tokens at 1024^2: 2 warpgroups of 64 q
+//   rows, O and S 64 fp32 registers each, q double-buffered beside a
+//   2-stage ring of 32 KB K and V tiles, 193 KB in all).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -524,6 +527,8 @@ extern "C" int cremage_flash_attention_bf16(const void* q, const void* k, const 
     case 64128'13: return launch<Plan<64, 128, 1, 3>>(a);
     case 80080'13: return launch<Plan<80, 80, 1, 3>>(a);
     case 80128'13: return launch<Plan<80, 128, 1, 3>>(a);
+    case 128080'12: return launch<Plan<128, 80, 1, 2>>(a);
+    case 128128'12: return launch<Plan<128, 128, 1, 2>>(a);
     case 160080'12: return launch<Plan<160, 80, 1, 2>>(a);
     case 160128'12: return launch<Plan<160, 128, 1, 2>>(a);
     case 512032'22: return launch<Plan<512, 32, 2, 2>>(a);

@@ -21,6 +21,12 @@
   model's). SDXL's OpenCLIP tower stores its attention input
   projection fused (`attn.in_proj_weight` / `in_proj_bias`, rows [q; k; v]);
   `openclip_text_subdict` splits it into the port's q/k/v projections.
+- FLUX ships as separate files: the BFL transformer (bare keys, or under
+  `model.diffusion_model.`), HF's T5 encoder (`t5_encoder_state_dict`:
+  `encoder.` stripped, the block-0 bias table lifted, the tied
+  `embed_tokens` copy of `shared` dropped), BFL's `ae.safetensors` (bare
+  `encoder.` / `decoder.` keys, no quant convs) and HF's CLIP-L
+  (`text_model.`).
 """
 from __future__ import annotations
 
@@ -313,24 +319,69 @@ def vae_state_dict_from_standalone(sd: Mapping[str, torch.Tensor]
                              "post_quant_conv"))}
 
 
+def strip_optional_prefix(sd: Mapping[str, torch.Tensor],
+                          prefix: str) -> Dict[str, torch.Tensor]:
+    """`sd` with `prefix` stripped where its keys carry it (as the JAX
+    loader reads the FLUX transformer and VAE files), else as it is."""
+    if any(k.startswith(prefix) for k in sd):
+        return component_state_dict(sd, prefix)
+    return dict(sd)
+
+
+T5_BIAS_KEY = "block.0.layer.0.SelfAttention.relative_attention_bias.weight"
+
+
+def t5_encoder_state_dict(sd: Mapping[str, torch.Tensor]
+                          ) -> Dict[str, torch.Tensor]:
+    """An HF T5 encoder file -> the port's T5Encoder keys: `encoder.`
+    stripped, block 0's bias table as `relative_attention_bias.weight`
+    (the renames of cremage_tpu/pipelines/loader.py), and the tied
+    `embed_tokens.weight` copy of `shared.weight` dropped."""
+    out = {}
+    for k, v in sd.items():
+        k = k[len("encoder."):] if k.startswith("encoder.") else k
+        if k == "embed_tokens.weight":
+            continue
+        out["relative_attention_bias.weight" if k == T5_BIAS_KEY else k] = v
+    return out
+
+
 def load_into(module: torch.nn.Module, sd: Mapping[str, torch.Tensor],
-              device, what: str) -> torch.nn.Module:
+              device, what: str, quantize: Optional[str] = None,
+              dtype: Optional[torch.dtype] = None) -> torch.nn.Module:
     """Load `sd` into `module` (strict: missing or unexpected keys and
     shape mismatches raise), each tensor converted to its parameter's
     dtype on the way to `device`, so the host holds no converted copy.
-    `module` may live on the meta device."""
+    `module` may live on the meta device. With `quantize` (an 8-bit kind
+    of io/quantize.py), each weight that `prepare_8bit` made 8-bit is
+    quantized on the device from the file's tensor converted to `dtype`
+    (the dtype the model keeps its other weights in, as JAX quantizes its
+    parameters in their param dtype), and its weight_scale comes from
+    there, not from the file."""
+    from cremage_tpu_torch.io.quantize import coded_weights, quantize_weight
+
     ref = module.state_dict()
-    missing = sorted(set(ref) - set(sd))
+    scales = coded_weights(ref)
+    if scales and quantize is None:
+        raise ValueError(f"{what}: 8-bit weights but no quantize kind")
+    derived = set(scales.values())
+    missing = sorted(set(ref) - set(sd) - derived)
     unexpected = sorted(set(sd) - set(ref))
     if missing or unexpected:
         raise KeyError(f"{what}: missing {len(missing)} keys {missing[:5]}, "
                        f"unexpected {len(unexpected)} {unexpected[:5]}")
     new = {}
     for k, r in ref.items():
+        if k in derived:
+            continue
         t = sd[k]
         if tuple(t.shape) != tuple(r.shape):
             raise ValueError(f"{what}: {k} has shape {tuple(t.shape)} in the "
                              f"file, the model wants {tuple(r.shape)}")
-        new[k] = t.to(device=device, dtype=r.dtype)
+        if k in scales:
+            new[k], new[scales[k]] = quantize_weight(
+                t.to(device=device, dtype=dtype or t.dtype), quantize)
+        else:
+            new[k] = t.to(device=device, dtype=r.dtype)
     module.load_state_dict(new, strict=True, assign=True)
     return module

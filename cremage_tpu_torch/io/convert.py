@@ -5,8 +5,10 @@ with dots flattened to underscores (cremage_tpu/io/checkpoint.py
 `normalize_key`). So each of the port module's own `state_dict()` keys,
 normalized the same way, names the flattened JAX path (joined with "_").
 Tensors are transposed HWIO -> OIHW for convolutions and (in, out) ->
-(out, in) for dense layers; embedding tables stay as they are. Any
-missing or unused key raises.
+(out, in) for dense layers; embedding tables stay as they are. 8-bit
+leaves (io/quantize.py: float8 or int8 codes and a `weight_scale`
+sibling) carry over bit for bit into a module that `prepare_8bit` gave
+8-bit weights. Any missing or unused key raises.
 
 Parameters arrive as a nested dict of numpy arrays (the caller applies
 `np.asarray` to each JAX leaf); nothing here imports jax.
@@ -19,10 +21,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from cremage_tpu_torch.io.quantize import leaf_to_tensor
+
 # rank-2 tensors that are (num, dim) tables, not linear layers
 _NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
                          "positional_embedding", "text_projection",
-                         "concept_embeds", "special_care_embeds")
+                         "concept_embeds", "special_care_embeds",
+                         "relative_attention_bias", "shared")
 
 
 def normalize_key(key: str) -> str:
@@ -69,7 +74,7 @@ def state_dict_from_jax(module: nn.Module, params: Mapping,
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: JAX shape {flat[name].shape} does not "
                              f"convert to {tuple(ref.shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr)).to(ref.dtype)
+        out[key] = leaf_to_tensor(np.ascontiguousarray(arr), ref.dtype)
         used.add(name)
     unused = sorted(set(flat) - used)
     if missing or unused:
@@ -105,3 +110,15 @@ def load_open_clip(module: nn.Module, params: Mapping) -> nn.Module:
     """A JAX OpenCLIPTextModel parameter tree into the port's (the
     positional table and text_projection stay as they are)."""
     return load_from_jax(module, params, rename=openclip_jax_name)
+
+
+def t5_jax_name(key: str) -> str:
+    """Normalized port T5Encoder key -> JAX T5Encoder name (its two tables
+    are bare params there)."""
+    return {"shared_weight": "shared",
+            "relative_attention_bias_weight": "relative_attention_bias"
+            }.get(key, key)
+
+
+def load_t5(module: nn.Module, params: Mapping) -> nn.Module:
+    return load_from_jax(module, params, rename=t5_jax_name)

@@ -8,6 +8,8 @@ Conventions:
 - Conv2d and Linear keep their weights in the compute dtype (see
   `set_compute_dtype`) and run like the JAX layers: accumulate in fp32,
   round to the compute dtype, then add the bias in the compute dtype;
+  `Linear8bit` holds 8-bit codes and a `weight_scale` instead
+  (io/quantize.py);
 - GroupNorm/LayerNorm parameters and statistics stay float32.
 """
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cremage_tpu_torch.io.quantize import is_coded
 from cremage_tpu_torch.ops.groupnorm import group_norm_silu
 
 
@@ -62,9 +65,55 @@ class Conv2d(nn.Conv2d):
         return y
 
 
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., in) @ w (out, in)^T accumulated and returned in float32, both
+    operands in x's dtype: on CUDA one cuBLAS product with a float32
+    output, on the CPU a float32 product."""
+    if x.device.type == "cuda":
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(), out_dtype=torch.float32)
+        return y.view(x.shape[:-1] + (w.shape[0],))
+    return F.linear(x.float(), w.float())
+
+
+def _w8a8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """int8 x int8 -> int32 product with the activations quantized per
+    token at use (cremage_tpu/models/layers.py `_dynamic_int8`): scale =
+    max(max|x| over the row / 127, 1e-12), codes round(x / scale). ->
+    the int32 product times the row scales, float32."""
+    a_scale = torch.clamp_min(x.abs().amax(-1, keepdim=True).float() / 127.0,
+                              1e-12)
+    xq = torch.round(x.float() / a_scale).to(torch.int8)
+    rows = xq.reshape(-1, x.shape[-1])
+    m = rows.shape[0]
+    if m <= 16:        # cuBLAS's int8 product takes more than 16 rows
+        rows = F.pad(rows, (0, 0, 0, 17 - m))
+    acc = torch._int_mm(rows, w.t())[:m]
+    return acc.float().view(x.shape[:-1] + (w.shape[0],)) * a_scale
+
+
 class Linear(nn.Linear):
     def forward(self, x):
         y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y
+
+
+class Linear8bit(Linear):
+    """A Linear over 8-bit weight storage: codes as its weight and a
+    float32 `weight_scale` per output row (io/quantize.py `set_8bit` makes
+    a Linear one), in the order of cremage_tpu/models/layers.py `Dense`:
+    float8 codes are cast to the compute dtype, the product accumulates in
+    float32, then the output column scale, then the cast, then the bias;
+    int8 codes take the w8a8 product (`_w8a8`), then the column scale."""
+
+    def forward(self, x):
+        w = self.weight
+        if w.dtype == torch.int8:
+            y = _w8a8(x, w)
+        else:
+            y = _mm_f32(x, w.to(x.dtype))
+        y = (y * self.weight_scale).to(x.dtype)
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
@@ -85,8 +134,11 @@ def quick_gelu(x):
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Store every Conv2d/Linear weight and bias in `dtype` (the compute
-    dtype); norm parameters and embedding tables stay float32."""
+    dtype); norm parameters and embedding tables stay float32, and 8-bit
+    weights (io/quantize.py) and their scales as they are."""
     for m in module.modules():
         if isinstance(m, (Conv2d, Linear)):
-            m.to(dtype)
+            for p in m.parameters(recurse=False):
+                if not is_coded(p):
+                    p.data = p.data.to(dtype)
     return module

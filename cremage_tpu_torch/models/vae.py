@@ -33,12 +33,22 @@ class VAEConfig:
     out_ch: int = 3
     scale_factor: float = 0.18215
     shift_factor: float = 0.0
+    # the 1x1 quant_conv / post_quant_conv around the latent (BFL's FLUX
+    # autoencoder has neither)
+    quant_convs: bool = True
     dtype: torch.dtype = torch.bfloat16
 
 
 def sdxl_vae_config(**kw) -> VAEConfig:
     """SDXL's VAE: SD1.5's architecture with scale factor 0.13025."""
     return VAEConfig(scale_factor=0.13025, **kw)
+
+
+def flux_vae_config(**kw) -> VAEConfig:
+    """FLUX's VAE (BFL's ae.safetensors): 16 latent channels, z = (x -
+    0.1159) * 0.3611, no quant convs."""
+    return VAEConfig(z_channels=16, scale_factor=0.3611, shift_factor=0.1159,
+                     quant_convs=False, **kw)
 
 
 class ResnetBlock(nn.Module):
@@ -194,8 +204,11 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.z_channels, 1)
-        self.post_quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, 1)
+        if cfg.quant_convs:
+            self.quant_conv = Conv2d(2 * cfg.z_channels, 2 * cfg.z_channels, 1)
+            self.post_quant_conv = Conv2d(cfg.z_channels, cfg.z_channels, 1)
+        else:
+            self.quant_conv = self.post_quant_conv = nn.Identity()
 
     def encode(self, x):
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=1)

@@ -18,8 +18,9 @@ from cremage_tpu_torch.ops.attention import dot_product_attention
 
 # padded head dims (round_up(d, 16)) the kernel is instantiated for: the
 # main path's d = 40, 80, 160 (UNet) and 512 (VAE mid-block), and d = 64
-# (the image safety checker's CLIP ViT-L/14 tower, 16 heads over 257 tokens)
-SUPPORTED_PADDED_D = (48, 64, 80, 160, 512)
+# (the image safety checker's CLIP ViT-L/14 tower, 16 heads over 257 tokens;
+# SDXL) and d = 128 (FLUX's joint attention, 24 heads)
+SUPPORTED_PADDED_D = (48, 64, 80, 128, 160, 512)
 
 SMEM_LIMIT = 232448   # shared memory one block can use on an H100
 # the plain version computes at most this many bytes of fp32 logits at once
@@ -71,8 +72,8 @@ def plan_flash(d: int, nq: int, nk: int) -> FlashPlan:
     if dp not in SUPPORTED_PADDED_D:
         raise ValueError(f"flash_attention kernel: head dim {d} unsupported")
     # three consumer warpgroups hide more of the wgmma and softmax latency
-    # where their registers (160 a thread) hold O, S and P; d = 160 and
-    # d = 512 need two (240 a thread)
+    # where their registers (160 a thread) hold O, S and P; d = 128, 160
+    # and 512 need two (240 a thread)
     nwg = 3 if dp <= 80 else 2
     if dp == 512:
         bk, split = 32, 2

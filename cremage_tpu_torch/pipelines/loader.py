@@ -1,5 +1,6 @@
-"""Checkpoint files -> SD15Bundle / SDXLBundle (the port of
-cremage_tpu/pipelines/loader.py `load_sd15_bundle` and `load_sdxl_bundle`),
+"""Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle (the port of
+cremage_tpu/pipelines/loader.py `load_sd15_bundle`, `load_sdxl_bundle`
+and `load_flux_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
 ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
 into the base model only, as in JAX; the refiner takes none.
@@ -8,11 +9,15 @@ Each component is built on the meta device and filled from the file
 strictly (io/checkpoint.py `load_into`), every tensor converted to its
 parameter's dtype on the way to the device, so the host holds no converted
 copy of the weights (the file itself is memory-mapped). LoRAs merge on the
-device in float32 and are cast back (io/lora.py). The JAX package's
-FaceID and 8-bit (`unet_quantize`) branches are not ported yet; its
-on-disk params cache
-saves its torch -> JAX conversion, which the port does not have, so there
-is none here.
+device in float32 and are cast back (io/lora.py). `quantize_unet`
+stores the UNets' linear weights in 8 bits (io/quantize.py) after every
+merge, from the weights in the model's dtype, as JAX quantizes its
+parameters in their param dtype: as the file loads when no LoRA is
+named, else in place after the merge. The JAX package's int8 storage of a UNet also
+takes its convolutions (w8a8 convs), which have no PyTorch kernel on
+CUDA: it is refused. The JAX package's FaceID branch is not ported yet;
+its on-disk params cache saves its torch -> JAX conversion, which the
+port does not have, so there is none here.
 """
 from __future__ import annotations
 
@@ -26,8 +31,12 @@ import torch
 from cremage_tpu_torch.core.rng import resolve_device
 from cremage_tpu_torch.io import checkpoint as CK
 from cremage_tpu_torch.io.lora import merge_lora
+from cremage_tpu_torch.io.quantize import (
+    check_dtype, prepare_8bit, quantize_module, storage_report, unet_kind,
+)
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
+from cremage_tpu_torch.models.flux import FluxModel, flux_dev_config, flux_schnell_config
 from cremage_tpu_torch.models.layers import set_compute_dtype
 from cremage_tpu_torch.models.open_clip import (
     OpenCLIPTextModel, openclip_bigg_config,
@@ -36,8 +45,12 @@ from cremage_tpu_torch.models.unet import (
     UNetConfig, UNetModel, sd15_unet_config, sdxl_base_unet_config,
     sdxl_refiner_unet_config,
 )
-from cremage_tpu_torch.models.vae import AutoencoderKL, VAEConfig, sdxl_vae_config
+from cremage_tpu_torch.models.t5 import T5Encoder, t5_xxl_config
+from cremage_tpu_torch.models.vae import (
+    AutoencoderKL, VAEConfig, flux_vae_config, sdxl_vae_config,
+)
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
+from cremage_tpu_torch.pipelines.flux import FluxBundle, FluxConditioner
 from cremage_tpu_torch.pipelines.sd15 import SD15Bundle
 from cremage_tpu_torch.pipelines.sdxl import SDXLBundle, SDXLConditioner
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
@@ -46,17 +59,23 @@ from cremage_tpu_torch.samplers import schedules as S
 logger = logging.getLogger(__name__)
 
 
-def _on_meta(cls, cfg, dtype):
+def _on_meta(cls, cfg, dtype, quantize: Optional[str] = None):
+    """`cls(cfg)` on the meta device in `dtype`, the linear weights that
+    io/quantize.py `targets` takes made 8-bit if `quantize` names a kind
+    (filled by `_Loads.fill`)."""
     with torch.device("meta"):
-        return set_compute_dtype(cls(cfg), dtype)
+        module = set_compute_dtype(cls(cfg), dtype)
+    if quantize:
+        prepare_8bit(module, quantize)
+    return module
 
 
 class _Loads:
-    """Reads files and fills modules on `device`, keeping each file's bytes
-    and load seconds in report["files"]."""
+    """Reads files and fills modules on `device` in `dtype`, keeping each
+    file's bytes and load seconds in report["files"]."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, device: torch.device, dtype: torch.dtype):
+        self.device, self.dtype = device, dtype
         self.report: Dict = {"files": {}, "loras": []}
 
     def read(self, path: str) -> Dict[str, torch.Tensor]:
@@ -67,11 +86,17 @@ class _Loads:
             seconds=time.perf_counter() - t0)
         return sd
 
-    def fill(self, module, sd, path, what):
-        """Load `sd` (from `path`) into `module`; the file is mapped, so
-        its bytes are read here, and the time counts to the file."""
+    def fill(self, module, sd, path, what, quantize: Optional[str] = None):
+        """Load `sd` (from `path`) into `module`, quantizing its 8-bit
+        weights (`_on_meta(..., quantize)`) as they load; the file is
+        mapped, so its bytes are read here, and the time counts to the
+        file."""
         t0 = time.perf_counter()
-        CK.load_into(module, sd, self.device, f"{what} of {path}")
+        CK.load_into(module, sd, self.device, f"{what} of {path}", quantize,
+                     self.dtype)
+        if quantize:
+            self.report.setdefault("quantize", {})[what] = storage_report(
+                module, quantize)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.report["files"][path]["seconds"] += time.perf_counter() - t0
@@ -98,6 +123,22 @@ class _Loads:
                         merged, skipped)
         self.report["lora_modules"] = names
 
+    def unet(self, cfg, sd, path, what, quantize, loras):
+        """The UNet filled from `sd`, its linear weights in 8 bits if
+        `quantize` names a kind: as they load, or, with `loras`, after the
+        merge (`quantize_after_merge`)."""
+        quantize = None if loras else quantize
+        return self.fill(_on_meta(UNetModel, cfg, self.dtype, quantize),
+                         sd, path, what, quantize)
+
+    def quantize_after_merge(self, unet, what, quantize, loras):
+        """The merged UNet's linear weights in 8 bits, quantized in place
+        from the merged weights in the model's dtype, as JAX quantizes
+        its merged parameters."""
+        if quantize and loras:
+            self.report.setdefault("quantize", {})[what] = quantize_module(
+                unet, quantize)
+
 
 def load_sd15_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
                      loras: Sequence[Tuple[str, float]] = (),
@@ -107,17 +148,21 @@ def load_sd15_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
                      device=None, dtype: torch.dtype = torch.bfloat16,
                      unet_cfg: Optional[UNetConfig] = None,
                      vae_cfg: Optional[VAEConfig] = None,
-                     clip_cfg: Optional[CLIPTextConfig] = None) -> SD15Bundle:
+                     clip_cfg: Optional[CLIPTextConfig] = None,
+                     quantize_unet: Optional[str] = None) -> SD15Bundle:
     """An SD1.5 bundle on `device` (CUDA unless named) from a single-file
     checkpoint, an optional standalone VAE, (path, weight) LoRAs, a TI
     directory and an optional ControlNet file. `inpainting` gives the UNet
     the 9 input channels of the inpainting checkpoints. The cfg arguments
-    load non-standard (tiny test) checkpoints. The bundle's `load_report`
-    holds each file's bytes and load seconds ("files"), each LoRA's merge
-    counts ("loras") and the names of the merged modules
-    ("lora_modules")."""
+    load non-standard (tiny test) checkpoints. `quantize_unet`
+    ("float8_e4m3", "float8_e5m2"; None or "none" for none) stores the
+    UNet's linear weights of at least io/quantize.py `MIN_SIZE` elements
+    in 8 bits. The bundle's `load_report` holds each file's bytes and load seconds
+    ("files"), each LoRA's merge counts ("loras"), the names of the merged
+    modules ("lora_modules") and the 8-bit storage ("quantize")."""
+    quantize = unet_kind(quantize_unet)
     device = resolve_device(device)
-    loads = _Loads(device)
+    loads = _Loads(device, dtype)
     read, fill = loads.read, loads.fill
 
     unet_cfg = unet_cfg or sd15_unet_config(dtype=dtype)
@@ -129,14 +174,15 @@ def load_sd15_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
 
     parts = CK.split_sd15(read(ckpt))
     vae_path, vae_sd = loads.vae(ckpt, parts.pop(CK.PREFIX_VAE), vae_ckpt)
-    unet = fill(_on_meta(UNetModel, unet_cfg, dtype),
-                parts.pop(CK.PREFIX_UNET), ckpt, "UNet")
+    unet = loads.unet(unet_cfg, parts.pop(CK.PREFIX_UNET), ckpt, "UNet",
+                      quantize, loras)
     clip = fill(_on_meta(CLIPTextModel, clip_cfg, dtype),
                 parts.pop(CK.PREFIX_CLIP_SD15), ckpt, "CLIP")
     vae = fill(_on_meta(AutoencoderKL, vae_cfg, dtype), vae_sd, vae_path, "VAE")
     del parts, vae_sd
 
     loads.merge_loras(loras, unet, clip, unet_cfg)
+    loads.quantize_after_merge(unet, "UNet", quantize, loras)
 
     controlnet = None
     if control_ckpt:
@@ -158,18 +204,20 @@ def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
                      loras: Sequence[Tuple[str, float]] = (),
                      embedding_dir: Optional[str] = None,
                      inpainting: bool = False,
-                     device=None, dtype: torch.dtype = torch.bfloat16
-                     ) -> SDXLBundle:
+                     device=None, dtype: torch.dtype = torch.bfloat16,
+                     quantize_unet: Optional[str] = None) -> SDXLBundle:
     """An SDXL bundle on `device` (CUDA unless named) in `dtype` from a
     single-file checkpoint (the sgm key layout; with `inpainting`, the
     9-channel inpainting UNet's), an optional standalone VAE, an optional
     refiner file (sd_xl_refiner_1.0's layout: its UNet and bigG), (path,
     weight) LoRAs merged into the base model (UNet, te1 -> CLIP-L, te2 ->
     OpenCLIP bigG) and a TI directory (two-tower files give each tower its
-    entry), at the published configs; `load_report` as in
+    entry), at the published configs; `quantize_unet` (the
+    base's and the refiner's UNet) and `load_report` as in
     load_sd15_bundle."""
+    quantize = unet_kind(quantize_unet)
     device = resolve_device(device)
-    loads = _Loads(device)
+    loads = _Loads(device, dtype)
     unet_cfg = dataclasses.replace(sdxl_base_unet_config(), dtype=dtype,
                                    in_channels=9 if inpainting else 4)
     vae_cfg = dataclasses.replace(sdxl_vae_config(), dtype=dtype)
@@ -178,8 +226,8 @@ def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
 
     parts = CK.split_sdxl(loads.read(ckpt))
     vae_path, vae_sd = loads.vae(ckpt, parts.pop(CK.PREFIX_VAE), vae_ckpt)
-    unet = loads.fill(_on_meta(UNetModel, unet_cfg, dtype),
-                      parts.pop(CK.PREFIX_UNET), ckpt, "UNet")
+    unet = loads.unet(unet_cfg, parts.pop(CK.PREFIX_UNET), ckpt, "UNet",
+                      quantize, loras)
     clip = loads.fill(_on_meta(CLIPTextModel, clip_cfg, dtype),
                       parts.pop(CK.PREFIX_CLIP_SDXL), ckpt, "CLIP-L")
     oc = loads.fill(_on_meta(OpenCLIPTextModel, openclip_cfg, dtype),
@@ -188,15 +236,15 @@ def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
                      vae_path, "VAE")
     del parts, vae_sd
     loads.merge_loras(loras, unet, clip, unet_cfg, text2=oc)
+    loads.quantize_after_merge(unet, "UNet", quantize, loras)
     tok = default_tokenizer()
     cond = SDXLConditioner(clip, oc, tok, embedding_dir)
     refiner_unet = refiner_cond = None
     if refiner_ckpt:
         r_cfg = dataclasses.replace(sdxl_refiner_unet_config(), dtype=dtype)
         rparts = CK.split_sdxl_refiner(loads.read(refiner_ckpt))
-        refiner_unet = loads.fill(_on_meta(UNetModel, r_cfg, dtype),
-                                  rparts.pop(CK.PREFIX_UNET), refiner_ckpt,
-                                  "refiner UNet")
+        refiner_unet = loads.unet(r_cfg, rparts.pop(CK.PREFIX_UNET),
+                                  refiner_ckpt, "refiner UNet", quantize, ())
         roc = loads.fill(_on_meta(OpenCLIPTextModel, openclip_cfg, dtype),
                          rparts.pop(CK.PREFIX_OPENCLIP_REFINER), refiner_ckpt,
                          "refiner OpenCLIP")
@@ -206,4 +254,54 @@ def load_sdxl_bundle(ckpt: str, vae_ckpt: Optional[str] = None,
     return SDXLBundle(unet=unet, conditioner=cond, vae=vae,
                       refiner_unet=refiner_unet,
                       refiner_conditioner=refiner_cond,
+                      load_report=loads.report)
+
+
+def load_flux_bundle(ckpt: str, vae_ckpt: str, clip_ckpt: Optional[str] = None,
+                     t5_ckpt: Optional[str] = None, t5_tokenize=None,
+                     guidance_embed: bool = False,
+                     quantize: Optional[str] = "float8_e4m3",
+                     device=None, dtype: torch.dtype = torch.bfloat16):
+    """A FLUX.1 bundle on `device` (CUDA unless named) from its four files,
+    as the JAX loader assembles them: the BFL transformer (bare keys or
+    under `model.diffusion_model.`), BFL's `ae.safetensors`, HF's CLIP-L
+    (`text_model.`) and HF's T5 encoder. `quantize` (default
+    "float8_e4m3"; "float8_e5m2", "int8", or None / "none" for bf16)
+    stores the transformer's and T5's linear weights in 8 bits, each
+    quantized from its file tensor on the device as it loads, as JAX
+    quantizes them; CLIP and the VAE stay in `dtype`. Without `t5_ckpt`
+    (or `t5_tokenize`) the T5 context is zeros, as in JAX. JAX runs a
+    randomly initialised CLIP-L when no `clip_ckpt` is named; the port
+    refuses. `load_report` as in load_sd15_bundle."""
+    if not clip_ckpt:
+        raise FileNotFoundError(
+            "FLUX needs clip_ckpt (CLIP-L in HF's text_model. layout): the "
+            "JAX loader runs a randomly initialised CLIP-L without it, the "
+            "port refuses")
+    quantize = None if quantize in (None, "", "none") else check_dtype(quantize)
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    cfg = (flux_dev_config if guidance_embed else flux_schnell_config)(
+        dtype=dtype)
+    model = loads.fill(
+        _on_meta(FluxModel, cfg, dtype, quantize),
+        CK.strip_optional_prefix(loads.read(ckpt), CK.PREFIX_UNET), ckpt,
+        "FLUX transformer", quantize)
+    vae = loads.fill(
+        _on_meta(AutoencoderKL, flux_vae_config(dtype=dtype), dtype),
+        CK.strip_optional_prefix(loads.read(vae_ckpt), CK.PREFIX_VAE),
+        vae_ckpt, "VAE")
+    clip = loads.fill(
+        _on_meta(CLIPTextModel, CLIPTextConfig(dtype=dtype), dtype),
+        CK.component_state_dict(loads.read(clip_ckpt), "text_model."),
+        clip_ckpt, "CLIP-L")
+    t5 = None
+    if t5_ckpt:
+        t5 = loads.fill(
+            _on_meta(T5Encoder, t5_xxl_config(dtype=dtype), dtype, quantize),
+            CK.t5_encoder_state_dict(loads.read(t5_ckpt)), t5_ckpt, "T5",
+            quantize)
+    cond = FluxConditioner(clip, default_tokenizer(), t5=t5,
+                           t5_tokenize=t5_tokenize)
+    return FluxBundle(model=model, conditioner=cond, vae=vae,
                       load_report=loads.report)

@@ -39,6 +39,7 @@ from cremage_tpu_torch.core.config import (
 from cremage_tpu_torch.core.rng import (
     GeneratorNoise, NoiseSource, resolve_device, resolve_seed,
 )
+from cremage_tpu_torch.io.quantize import unet_kind
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.controlnet import ControlNet
 from cremage_tpu_torch.models.layers import set_compute_dtype
@@ -99,7 +100,9 @@ def _noop_status(msg: str) -> None:
 
 def check_supported(opts: GenerationOptions) -> None:
     """Raise NotImplementedError for every option this port does not run
-    yet (the JAX pipeline runs them all)."""
+    yet (the JAX pipeline runs them all), int8 UNet storage among them
+    (io/quantize.py `unet_kind`)."""
+    unet_kind(opts.extra.get("unet_quantize"))
     unsupported = {
         "sampler": opts.sampler not in SAMPLER_MENU + EXTRA_SAMPLERS,
         "mode": opts.mode not in MODES,

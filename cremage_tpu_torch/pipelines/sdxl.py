@@ -51,6 +51,7 @@ from cremage_tpu_torch.core.config import (
 )
 from cremage_tpu_torch.core.rng import GeneratorNoise, NoiseSource, resolve_device, resolve_seed
 from cremage_tpu_torch.io.ti import load_embedding
+from cremage_tpu_torch.io.quantize import unet_kind
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.layers import set_compute_dtype, timestep_embedding
 from cremage_tpu_torch.models.open_clip import OpenCLIPTextModel, openclip_bigg_config
@@ -245,7 +246,9 @@ def _noop_status(msg: str) -> None:
 
 def check_supported(opts: GenerationOptions) -> None:
     """Raise NotImplementedError for every option this port does not run
-    yet (the JAX pipeline runs them all)."""
+    yet (the JAX pipeline runs them all), int8 UNet storage among them
+    (io/quantize.py `unet_kind`)."""
+    unet_kind(opts.extra.get("unet_quantize"))
     unsupported = {
         "sampler": opts.sampler not in SDXL_SAMPLERS,
         "mode": opts.mode not in SDXL_MODES,
@@ -254,13 +257,11 @@ def check_supported(opts: GenerationOptions) -> None:
         "deep_cache": int(opts.deep_cache) > 1,
         "tome_ratio": float(opts.tome_ratio) > 0.0,
         "ada_cache": float(opts.ada_cache) > 0.0,
-        "unet_quantize": opts.extra.get("unet_quantize") not in (None, "", "none"),
         "auto_face_fix": bool(opts.auto_face_fix),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
-        vals = {k: (opts.extra.get(k) if k == "unet_quantize"
-                    else getattr(opts, k, None)) for k in bad}
+        vals = {k: getattr(opts, k, None) for k in bad}
         raise NotImplementedError(
             f"the PyTorch SDXL pipeline runs the modes {SDXL_MODES} with "
             f"the samplers {SDXL_SAMPLERS} and the guiders "

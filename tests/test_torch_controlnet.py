@@ -13,7 +13,7 @@ from cremage_tpu_torch.io import convert
 from cremage_tpu_torch.models.controlnet import ControlNet
 from cremage_tpu_torch.models.unet import UNetConfig, UNetModel
 from tests.test_torch_models import HID, UNET_KW, nchw
-from tests.test_torch_pipeline import jax_params
+from tests.test_torch_pipeline import jax_params, cheap_jax  # noqa: F401
 
 torch.set_num_threads(2)
 

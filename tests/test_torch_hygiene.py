@@ -13,8 +13,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     """Every module of the port imports without jax or the JAX package, and
     without a package the card's machine lacks (safetensors, yaml, cv2,
     PIL, transformers): counted beyond what a bare `import torch, numpy,
-    scipy` loads. The checkpoint, LoRA, ControlNet and safety modules, and
-    SDXL's, are among those imported."""
+    scipy` loads. The checkpoint, LoRA, ControlNet and safety modules,
+    SDXL's, and FLUX's with 8-bit storage and the SentencePiece tokenizer,
+    are among those imported."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy, scipy, scipy.fft, torch
@@ -38,7 +39,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                     "prompt.wildcards", "models.controlnet",
                     "models.safety_checker", "services.safety",
                     "services.watermark", "app.backends",
-                    "models.open_clip", "samplers.edm", "pipelines.sdxl"):
+                    "models.open_clip", "samplers.edm", "pipelines.sdxl",
+                    "io.quantize", "prompt.sentencepiece", "models.flux",
+                    "models.t5", "samplers.flow", "pipelines.flux"):
             assert "cremage_tpu_torch." + new in names, new
         print("clean")
     """)

@@ -33,7 +33,9 @@ from cremage_tpu_torch.samplers import edm as E
 from cremage_tpu_torch.samplers import lcm as LCM
 from cremage_tpu_torch.samplers import ldm_extra as LDMX
 from tests.conftest import assert_img01_close
-from tests.test_torch_pipeline import OPTS, bundles, jax_noise  # noqa: F401
+from tests.test_torch_pipeline import (  # noqa: F401
+    OPTS, bundles, jax_noise, cheap_jax,
+)
 from tests.test_torch_samplers import SHAPE, jax_steps
 
 torch.set_num_threads(2)
@@ -192,14 +194,23 @@ def jax_pipe(bundles):  # noqa: F811
 
 
 def test_sd15_generate_matches_jax(bundles, jax_pipe):  # noqa: F811
-    """The whole SD1.5 job with each extra sampler (LCM from its grid's top
-    sigma, the others from unit noise), the port handed JAX's noise; the
-    extra samplers are the JAX server's and t-driven as in JAX."""
+    """The whole SD1.5 job with PLMS (from unit noise), the port handed
+    JAX's noise; the extra samplers are the JAX server's and t-driven as
+    in JAX. DPM Solver's and LCM's jobs are the next test's: each JAX
+    sampler program compiles anew, and one test for the three took over
+    20 s."""
     from cremage_tpu.pipelines.sd15 import T_DRIVEN_SAMPLERS as J_T_DRIVEN
 
     assert EXTRA_SAMPLERS == ("PLMS", "DPM Solver", "LCM")
     assert T_DRIVEN_SAMPLERS == J_T_DRIVEN
-    for sampler, steps in (("PLMS", 3), ("DPM Solver", 3), ("LCM", 2)):
+    _check_generate(bundles[1], jax_pipe, "PLMS", 3)
+
+
+def test_sd15_generate_with_dpm_solver_and_lcm_matches_jax(
+        bundles, jax_pipe):  # noqa: F811
+    """The whole SD1.5 job with DPM Solver (from unit noise) and with LCM
+    (from its grid's top sigma), as test_sd15_generate_matches_jax."""
+    for sampler, steps in (("DPM Solver", 3), ("LCM", 2)):
         _check_generate(bundles[1], jax_pipe, sampler, steps)
 
 

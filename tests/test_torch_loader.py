@@ -13,7 +13,6 @@ them and to 1e-6 relative after the float32 merge, and one generate()
 with a ControlNet, a TI tag and a wildcard must agree within the 2/255 of
 test_txt2img_matches_jax.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +26,7 @@ from cremage_tpu.models.clip import CLIPTextConfig as JCLIPConfig
 from cremage_tpu.models.controlnet import ControlNet as JControlNet
 from cremage_tpu.models.unet import UNetConfig as JUNetConfig
 from cremage_tpu.models.vae import VAEConfig as JVAEConfig
+from cremage_tpu.pipelines import loader as JLOADER
 from cremage_tpu.pipelines.loader import load_sd15_bundle as j_load
 from cremage_tpu.pipelines.sd15 import SD15Pipeline as JPipeline
 from cremage_tpu.services.safety import ImageSafetyChecker as JSafety
@@ -43,7 +43,10 @@ from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline
 from cremage_tpu_torch.services.safety import ImageSafetyChecker
 from cremage_tpu_torch.services.watermark import decode_watermark
 from tests.conftest import assert_img01_close
-from tests.test_torch_pipeline import CLIP_KW, HID, OPTS, UNET_KW, VAE_KW, jax_noise
+from tests.test_torch_pipeline import (  # noqa: F401
+    CLIP_KW, HID, OPTS, UNET_KW, VAE_KW, jax_noise, shared_template,
+    cheap_jax,
+)
 
 torch.set_num_threads(2)
 F32 = torch.float32
@@ -121,7 +124,9 @@ def files(tmp_path_factory):
     return {k: str(v) for k, v in paths.items()}
 
 
-def _jax_bundle(files):
+def _jax_bundle(files, monkeypatch):
+    # the init traces shared with the run's other workers
+    monkeypatch.setattr(JLOADER, "_template", shared_template(JLOADER._template))
     jb = j_load(files["model"], vae_ckpt=files["vae"],
                 loras=[(files["lora"], LORA_WEIGHT)],
                 embedding_dir=files["emb"], policy=FP32_POLICY,
@@ -132,9 +137,9 @@ def _jax_bundle(files):
     # (loader.py), which the tiny ControlNet does not have: the same
     # build_flax_params call, on the tiny template
     jcn = JControlNet(JUNetConfig(**UNET_KW, dtype=jnp.float32))
-    tmpl = jax.eval_shape(jcn.init, jax.random.key(0), jnp.zeros((1, 8, 8, 4)),
-                          jnp.zeros((1, 64, 64, 3)), jnp.zeros((1,)),
-                          jnp.zeros((1, 77, HID)))["params"]
+    tmpl = JLOADER._template(jcn, jnp.zeros((1, 8, 8, 4)),
+                             jnp.zeros((1, 64, 64, 3)), jnp.zeros((1,)),
+                             jnp.zeros((1, 77, HID)))
     cn_params, _, _ = JCK.build_flax_params(
         tmpl, JCK.load_state_dict(files["cn"]), "control_model.",
         dtype=jnp.float32)
@@ -167,7 +172,7 @@ def _compare(module, jax_params, rename, lora_targets):
 def test_loader_and_generate_match_jax(files, port_bundle, monkeypatch):
     """One test, so that the JAX bundle is loaded once per run."""
     monkeypatch.delenv("SAFETY_CHECKER_PATH", raising=False)
-    jb, tb = _jax_bundle(files), port_bundle
+    jb, tb = _jax_bundle(files, monkeypatch), port_bundle
     report = tb.load_report
     names = report["lora_modules"]
     assert report["loras"] == [dict(path=files["lora"], merged=len(LORA_UNET),

@@ -37,7 +37,7 @@ from cremage_tpu_torch.models.vae import decode_from_latent, encode_to_latent
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.prompt.parser import compute_prompt_score
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
-from tests.test_torch_pipeline import jax_params
+from tests.test_torch_pipeline import jax_params, cheap_jax  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -248,8 +248,10 @@ def test_set_compute_dtype_keeps_norms_float32():
 
 def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     """The CUDA kernels refuse strided views, which the CPU plain versions
-    would accept: check every K1/K2 call of the UNet and of the VAE's
-    encoder and decoder here."""
+    would accept: check every K1/K2 call of the UNet, of the VAE's encoder
+    and decoder, and of FLUX's double and single blocks (the single
+    block's v is a slice of linear1's output) here."""
+    from cremage_tpu_torch.models import flux as FX
     from cremage_tpu_torch.models import unet as U
     from cremage_tpu_torch.models import vae as V
     from cremage_tpu_torch.ops import attention as A
@@ -270,6 +272,7 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
 
     monkeypatch.setattr(U, "attention", attn)
     monkeypatch.setattr(V, "attention", attn)
+    monkeypatch.setattr(FX, "attention", attn)
     monkeypatch.setattr(L, "group_norm_silu", gn)
     unet = UNetModel(UNetConfig(**UNET_KW, dtype=torch.float32)).eval()
     vae = AutoencoderKL(VAEConfig(**VAE_KW, dtype=torch.float32)).eval()
@@ -282,3 +285,15 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     count = lambda m, kind: sum(isinstance(x, kind) for x in m.modules())
     assert calls["attn"] == count(unet, U.CrossAttention) + 2 == 10
     assert calls["gn"] == count(unet, L.GroupNorm) + count(vae, L.GroupNorm)
+
+    flux = FX.FluxModel(FX.FluxConfig(
+        hidden_size=64, num_heads=2, head_dim=32, depth_double=2,
+        depth_single=3, context_dim=48, vec_dim=24, axes_dim=(8, 12, 12),
+        dtype=torch.float32)).eval()
+    txt_ids, img_ids = FX.make_position_ids(2, 3, 5)
+    calls["attn"] = 0
+    with torch.no_grad():
+        flux(torch.randn(1, 6, 64), torch.randn(1, 5, 48), torch.tensor([0.5]),
+             torch.randn(1, 24), img_ids, txt_ids)
+    assert calls["attn"] == count(flux, FX.DoubleBlock) + \
+        count(flux, FX.SingleBlock) == 5

@@ -49,7 +49,7 @@ from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
 from cremage_tpu_torch.samplers import schedules as S
 from cremage_tpu_torch.utils.resize import resize
 from tests.conftest import assert_img01_close
-from tests.test_torch_pipeline import jax_params
+from tests.test_torch_pipeline import jax_params, cheap_jax  # noqa: F401
 
 torch.set_num_threads(2)
 

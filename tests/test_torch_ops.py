@@ -9,6 +9,7 @@ on the card and skip here; JAX is imported inside the parity tests so that
 they also run where jax is not installed:
 `python -m pytest --noconftest tests/test_torch_ops.py -m cuda`.
 """
+import copy
 import functools
 import re
 from pathlib import Path
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from cremage_tpu_torch.io.quantize import quantize_module
+from cremage_tpu_torch.models.layers import Linear, set_compute_dtype
 from cremage_tpu_torch.ops.attention import attention
 from cremage_tpu_torch.ops.flash_attention import (
     SMEM_LIMIT, SWIZZLE_BYTES, check_kernel_inputs as check_fa_inputs,
@@ -31,6 +34,20 @@ from cremage_tpu_torch.ops.groupnorm import (
 torch.set_num_threads(2)
 
 ATOL = RTOL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cheap_jax():
+    """tests/test_torch_pipeline.py's `cheap_jax_references` for this
+    module's JAX references, where JAX is installed (the card's machine,
+    which runs the `cuda` tests here, has none)."""
+    try:
+        from tests.test_torch_pipeline import cheap_jax_references
+    except ImportError:
+        yield
+        return
+    with cheap_jax_references():
+        yield
 
 
 def _qkv(seed, b, nq, nk, h, d):
@@ -122,6 +139,9 @@ SAFETY_NQ_NK_D = [(257, 257, 64)]
 REFINER_NQ_NK_D = [(4096, 4096, 64), (4096, 77, 64), (1024, 1024, 64),
                    (1024, 77, 64), (256, 256, 64), (256, 77, 64)]
 ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D + SAFETY_NQ_NK_D
+# FLUX's joint attention at 1024^2 (4096 image + 256 T5 tokens, d = 128),
+# and dp = 128's 80-key tile with a ragged q block
+FLUX_NQ_NK_D = [(4352, 4352, 128), (100, 77, 128), (4352, 4100, 128)]
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -180,16 +200,23 @@ def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
 
 
 def test_plans_take_the_refiner_shapes():
-    """The SDXL refiner's K1 and K2 shapes through each plan test above
-    (one test: under `--dist load` the number of collected items sets the
-    suite's wall time, ROADMAP.md)."""
-    for nq, nk, d in REFINER_NQ_NK_D:
+    """The SDXL refiner's K1 and K2 shapes, and FLUX's K1 shapes at
+    dp = 128 (2 warpgroups, q double-buffered beside a 2-stage ring),
+    through each plan test above (one test: under `--dist load` the number
+    of collected items sets the suite's wall time, ROADMAP.md)."""
+    for nq, nk, d in FLUX_NQ_NK_D:
+        plan = plan_flash(d, nq, nk)
+        assert (plan.nwg, plan.bq, plan.q_bufs) == (2, 128, 2)
+        # 32 KB q buffers and 32 KB K / V tiles: a third stage does not fit
+        # beside 128-key tiles, it does beside 80-key ones
+        assert (plan.bk, plan.stages) == ((80, 3) if nk <= 80 else (128, 2))
+    for nq, nk, d in REFINER_NQ_NK_D + FLUX_NQ_NK_D:
         for check in (test_flash_plan_fits_shared_memory,
                       test_flash_plan_tma_boxes, test_flash_plan_key_tile,
                       test_flash_plan_output_split_covers_d_once,
                       test_flash_plan_is_an_instantiation_of_the_kernel):
             check(nq, nk, d)
-    for shape in REFINER_GN:
+    for shape in REFINER_GN + [c[:4] for c in FLUX_VAE_GN]:
         for check in (test_groupnorm_plan_covers_slab_once,
                       test_groupnorm_plan_fits_a_cta,
                       test_groupnorm_new_path_route):
@@ -298,6 +325,12 @@ NEW_PATH_GN = [(1, 128, 512, 512), (1, 128, 256, 256), (1, 256, 256, 256),
 # the SDXL refiner's UNet at the CFG batch of 2 over a 1024^2 latent: 384
 # channels (12 a group) at 128^2, 1152 at 64^2, 2304 at 32^2
 REFINER_GN = [(2, 384, 128, 128), (2, 1152, 64, 64), (2, 2304, 32, 32)]
+# the FLUX VAE decoder's 30 calls at 1024^2 (batch 1, z = 16): 7 (shape,
+# SiLU) pairs, the mid-block attention's norm the one without SiLU
+FLUX_VAE_GN = [(1, 512, 128, 128, True), (1, 512, 128, 128, False),
+               (1, 512, 256, 256, True), (1, 512, 512, 512, True),
+               (1, 256, 512, 512, True), (1, 256, 1024, 1024, True),
+               (1, 128, 1024, 1024, True)]
 # edge cases: H*W = 8; a slab not divisible by 8 * k (a short last piece);
 # N * G = 65535, the grid's y limit
 EDGE_GN = [(2, 64, 1, 8), (2, 96, 61, 136), (65535, 1, 1, 64)]
@@ -474,32 +507,22 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,nq,nk,h,d", [(1, 200, 4096, 2, 40),
-                                         (2, 300, 77, 4, 40),
-                                         (2, 256, 256, 8, 80),
-                                         (1, 64, 77, 8, 160),
-                                         (1, 256, 256, 1, 512),
-                                         # the K/V ring: fewer tiles than
-                                         # stages, a ragged last tile, q rows
-                                         # not a multiple of 128
-                                         (2, 100, 64, 4, 80),
-                                         (2, 100, 130, 4, 80),
-                                         (1, 300, 4096, 2, 40),
-                                         (8, 64, 64, 8, 160),
-                                         (1, 1024, 1024, 1, 512),
-                                         # the hires fix's longest loops: 512
-                                         # K/V tiles an item at d = 512, and
-                                         # 9216 tokens at d = 40
-                                         (1, 16384, 16384, 1, 512),
-                                         (2, 9216, 9216, 8, 40),
-                                         # the safety checker's d = 64 at
-                                         # its batch of 4 and of 1: ragged
-                                         # key tiles (2 * 128 + 1) and a
-                                         # second item of 65 q rows
-                                         (4, 257, 257, 16, 64),
-                                         (1, 257, 257, 16, 64)])
-def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
+# K1 on the card: the main path's head dims at ragged q and key counts, the
+# K/V ring (fewer tiles than stages, a ragged last tile, q rows not a
+# multiple of 128), the hires fix's longest loops (512 K/V tiles an item at
+# d = 512, 9216 tokens at d = 40) and the safety checker's d = 64 at its
+# batch of 4 and of 1 (ragged key tiles of 2 * 128 + 1, a second item of 65
+# q rows)
+FLASH_CUDA_CASES = [(1, 200, 4096, 2, 40), (2, 300, 77, 4, 40),
+                    (2, 256, 256, 8, 80), (1, 64, 77, 8, 160),
+                    (1, 256, 256, 1, 512), (2, 100, 64, 4, 80),
+                    (2, 100, 130, 4, 80), (1, 300, 4096, 2, 40),
+                    (8, 64, 64, 8, 160), (1, 1024, 1024, 1, 512),
+                    (1, 16384, 16384, 1, 512), (2, 9216, 9216, 8, 40),
+                    (4, 257, 257, 16, 64), (1, 257, 257, 16, 64)]
+
+
+def _check_flash_kernel(cuda, b, nq, nk, h, d):
     q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
                for a in _qkv(d, b, nq, nk, h, d))
     got = flash_attention(q, k, v)
@@ -508,7 +531,17 @@ def test_flash_kernel_matches_plain(cuda, b, nq, nk, h, d):
     # both round P to bf16 (unnormalized here, normalized in the plain
     # version) and the output once: a few bf16 ulps of the largest output
     tol = 2.0 ** -6 * float(want.float().abs().max())
-    assert float((got.float() - want.float()).abs().max()) <= tol
+    assert float((got.float() - want.float()).abs().max()) <= tol, \
+        (b, nq, nk, h, d)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_plain(cuda):
+    """Each of FLASH_CUDA_CASES (one test looping over them: under `--dist
+    load` the number of collected items sets the suite's wall time,
+    ROADMAP.md)."""
+    for case in FLASH_CUDA_CASES:
+        _check_flash_kernel(cuda, *case)
 
 
 # (N, C, H, W, eps, silu, mean of x (std 2)) and the plan's route: every
@@ -547,44 +580,14 @@ def test_groupnorm_cuda_cases_cover_the_plans():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("silu", [True, False])
-@pytest.mark.parametrize("n,c,h,w", ANY_HW_GN)
-def test_groupnorm_kernel_takes_any_hw(cuda, n, c, h, w, silu):
-    """H*W % 8 != 0 on the card: the kernel, never the plain version or a
-    library call, within one bf16 ulp of the plain version."""
-    rng = np.random.RandomState(6)
-    xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(
-        np.float32)).to(cuda, torch.bfloat16)
-    wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
-              for _ in "wb")
-    before = group_norm_silu.launches
-    got = group_norm_silu(xt, wt, bt, 32, 1e-5, silu)
-    torch.cuda.synchronize()
-    assert group_norm_silu.launches == before + 1
-    want = group_norm_silu_reference(xt, wt, bt, 32, 1e-5, silu)
-    assert float((got.float() - want.float()).abs().max()) <= \
-        2.0 ** -7 * max(1.0, float(want.float().abs().max()))
-
-
-@pytest.mark.cuda
-def test_flash_kernel_at_refiner_shapes(cuda):
-    """The SDXL refiner's K1 calls on the card (12 and 24 heads of d = 64:
-    a TMA box spans heads): the kernel, as test_flash_kernel_matches_plain
-    holds it."""
-    for (nq, nk, d), h in zip(REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24)):
-        before = flash_attention.launches
-        test_flash_kernel_matches_plain(cuda, 2, nq, nk, h, d)
-        assert flash_attention.launches == before + 1, (nq, nk, h)
-
-
-@pytest.mark.cuda
-def test_groupnorm_kernel_at_refiner_shapes(cuda):
-    """The SDXL refiner's slabs (12 channels a group at 128^2) on the card,
-    with and without SiLU: the kernel within one bf16 ulp of the plain
-    version."""
-    rng = np.random.RandomState(7)
-    for n, c, h, w in REFINER_GN:
+def test_groupnorm_kernel_takes_any_hw(cuda):
+    """H*W % 8 != 0 on the card, each shape of ANY_HW_GN with and without
+    SiLU (one looping test, as test_flash_kernel_matches_plain): the
+    kernel, never the plain version or a library call, within one bf16 ulp
+    of the plain version."""
+    for n, c, h, w in ANY_HW_GN:
         for silu in (True, False):
+            rng = np.random.RandomState(6)
             xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(
                 np.float32)).to(cuda, torch.bfloat16)
             wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
@@ -599,19 +602,85 @@ def test_groupnorm_kernel_at_refiner_shapes(cuda):
                 (n, c, h, w, silu)
 
 
+def _check_8bit_linear(cuda, rows, n_in, n_out, kind):
+    """`Linear` over 8-bit codes on the card (cuBLAS's float32-output
+    product, or `_int_mm`) against its CPU branch on the same codes,
+    scales, bias and bf16 activations."""
+    torch.manual_seed(rows)
+    lin = set_compute_dtype(Linear(n_in, n_out), torch.bfloat16)
+    quantize_module(lin, kind)
+    x = torch.from_numpy(np.random.RandomState(rows).randn(
+        2, rows, n_in).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = lin(x).float()
+        got = copy.deepcopy(lin).to(cuda)(x.to(cuda)).float().cpu()
+    # the same products summed in another order in float32, then one
+    # rounding to bf16 before and one after the bias: a few bf16 ulps of
+    # the largest output
+    tol = 2.0 ** -6 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol, (rows, n_in, n_out, kind)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,c,h,w,eps,silu,mean,route", GN_CUDA_CASES)
-def test_groupnorm_kernel_matches_plain(cuda, n, c, h, w, eps, silu, mean,
-                                        route):
-    rng = np.random.RandomState(5)
-    xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + mean).astype(
-        np.float32)).to(cuda, torch.bfloat16)
-    wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
-              for _ in "wb")
-    got = group_norm_silu(xt, wt, bt, 32, eps, silu)
-    torch.cuda.synchronize()
-    want = group_norm_silu_reference(xt, wt, bt, 32, eps, silu)
-    # the statistics' summation order and the kernel's sigmoid
-    # (tanh.approx) differ: one bf16 ulp of the largest output
-    assert float((got.float() - want.float()).abs().max()) <= \
-        2.0 ** -7 * max(1.0, float(want.float().abs().max()))
+def test_flash_kernel_at_refiner_shapes(cuda):
+    """The SDXL refiner's K1 calls on the card (12 and 24 heads of d = 64:
+    a TMA box spans heads), and FLUX's dp = 128 instantiation: its joint
+    attention at 1024^2 (24 heads), an 80-key tile with a ragged q block,
+    and ragged key and q tails beyond it: the kernel, as
+    test_flash_kernel_matches_plain holds it. Beside K1 in FLUX's blocks,
+    `Linear`'s float8 and int8 products on the card against its CPU
+    branch, at FLUX's width and at 7 rows (`_int_mm`'s padding)."""
+    cases = [(2, nq, nk, h, d) for (nq, nk, d), h in zip(
+        REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24))] + [
+        (1, 4352, 4352, 24, 128), (1, 4352, 4100, 24, 128),
+        (2, 4352, 4352, 24, 128), (2, 100, 77, 4, 128), (1, 300, 130, 3, 128)]
+    for b, nq, nk, h, d in cases:
+        before = flash_attention.launches
+        _check_flash_kernel(cuda, b, nq, nk, h, d)
+        assert flash_attention.launches == before + 1, (b, nq, nk, h, d)
+    for kind in ("float8_e4m3", "float8_e5m2", "int8"):
+        for rows in (300, 7):
+            _check_8bit_linear(cuda, rows, 3072, 3072, kind)
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernel_at_refiner_shapes(cuda):
+    """The SDXL refiner's slabs (12 channels a group at 128^2) on the card,
+    with and without SiLU, and the FLUX VAE decoder's at 1024^2: the
+    kernel within one bf16 ulp of the plain version."""
+    rng = np.random.RandomState(7)
+    cases = [(n, c, h, w, silu) for n, c, h, w in REFINER_GN
+             for silu in (True, False)] + FLUX_VAE_GN
+    for n, c, h, w, silu in cases:
+        xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+                  for _ in "wb")
+        before = group_norm_silu.launches
+        got = group_norm_silu(xt, wt, bt, 32, 1e-5, silu)
+        torch.cuda.synchronize()
+        assert group_norm_silu.launches == before + 1
+        want = group_norm_silu_reference(xt, wt, bt, 32, 1e-5, silu)
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -7 * max(1.0, float(want.float().abs().max())), \
+            (n, c, h, w, silu)
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernel_matches_plain(cuda):
+    """Each of GN_CUDA_CASES (one looping test, as
+    test_flash_kernel_matches_plain)."""
+    for n, c, h, w, eps, silu, mean, _ in GN_CUDA_CASES:
+        rng = np.random.RandomState(5)
+        xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + mean).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        wt, bt = (torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+                  for _ in "wb")
+        got = group_norm_silu(xt, wt, bt, 32, eps, silu)
+        torch.cuda.synchronize()
+        want = group_norm_silu_reference(xt, wt, bt, 32, eps, silu)
+        # the statistics' summation order and the kernel's sigmoid
+        # (tanh.approx) differ: one bf16 ulp of the largest output
+        assert float((got.float() - want.float()).abs().max()) <= \
+            2.0 ** -7 * max(1.0, float(want.float().abs().max())), \
+            (n, c, h, w, eps, silu, mean)

@@ -7,6 +7,10 @@ cremage_tpu_torch/io/convert.py), and the port is handed the noise the
 JAX pipeline draws from its threefry keys. Everything is float32 on the
 CPU.
 """
+import contextlib
+
+import flax.core.meta as flax_meta
+import flax.core.scope as flax_scope
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,6 +61,67 @@ OPTS = dict(prompt="a (red:1.2) cat", negative_prompt="bad", H=64, W=64,
 
 
 _SHAPES = {}
+
+
+def _param_unchecked(self, name, init_fn, *init_args, unbox=True,
+                     **init_kwargs):
+    """flax's `Scope.param` without the check it makes at every apply: an
+    existing parameter is returned as it is, where flax first traces its
+    initializer again (`jax.eval_shape`) to compare the shapes. The port's
+    tests draw their JAX parameters from `jax.eval_shape` of the same
+    modules' init (`jax_params`, JAX's loader templates), so the shapes
+    agree by construction; a missing parameter is created as flax does."""
+    if self.has_variable("params", name):
+        self.reserve(name, "params")
+        value = self.get_variable("params", name)
+        return flax_meta.unbox(value) if unbox else value
+    return _FLAX_PARAM(self, name, init_fn, *init_args, unbox=unbox,
+                       **init_kwargs)
+
+
+_FLAX_PARAM = flax_scope.Scope.param
+
+
+@contextlib.contextmanager
+def cheap_jax_references():
+    """The JAX references of a port test module traced and compiled for
+    less CPU time, with the same arithmetic: XLA's backend optimizations
+    off (jax_disable_most_optimizations: LLVM at -O0, none of its
+    expensive passes; XLA's HLO passes run as before), and no re-trace of
+    each parameter's initializer at every apply (`_param_unchecked`).
+    The flag is not part of JAX's cache keys, so the programs compiled
+    meanwhile are dropped at the end: no later caller (a JAX package test
+    among them) reuses one."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    flax_scope.Scope.param = _param_unchecked
+    try:
+        yield
+    finally:
+        flax_scope.Scope.param = _FLAX_PARAM
+        jax.config.update("jax_disable_most_optimizations", False)
+        jax.clear_caches()
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cheap_jax():
+    """A module's JAX references under `cheap_jax_references`: the tiny
+    programs' traces and compiles dominate these tests. Every port test
+    module that runs JAX imports it."""
+    with cheap_jax_references():
+        yield
+
+
+def shared_template(template):
+    """JAX's loader `_template(model, *args)` (the params of an eval_shape
+    of the init) from the cache of `jax_params`, under its key: a trace of
+    a tiny model's init takes 1-3 s, and the port's test modules load the
+    same tiny configs."""
+    def memo(model, *args):
+        key = (repr(model), tuple((a.shape, str(a.dtype)) for a in args))
+        if key not in _SHAPES:
+            _SHAPES[key] = {"params": template(model, *args)}
+        return _SHAPES[key]["params"]
+    return memo
 
 
 def jax_params(module, seed, *args):

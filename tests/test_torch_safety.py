@@ -23,7 +23,7 @@ from cremage_tpu_torch.models.safety_checker import (
 from cremage_tpu_torch.services.safety import (
     ImageSafetyChecker, TextSafetyChecker, default_image_safety,
 )
-from tests.test_torch_pipeline import jax_params
+from tests.test_torch_pipeline import jax_params, cheap_jax  # noqa: F401
 
 torch.set_num_threads(2)
 

@@ -22,6 +22,7 @@ from cremage_tpu_torch.pipelines.sd15 import SAMPLER_MENU
 from cremage_tpu_torch.samplers import ddim as DDIM
 from cremage_tpu_torch.samplers import kdiffusion as K
 from cremage_tpu_torch.samplers import schedules as S
+from tests.test_torch_pipeline import cheap_jax  # noqa: F401
 
 SHAPE = (2, 4, 4, 4)
 STEPS = 5

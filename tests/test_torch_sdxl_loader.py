@@ -18,6 +18,7 @@ decode), the port handed the noise the JAX pipeline draws.
 """
 import base64
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,9 @@ from cremage_tpu_torch.pipelines import loader as LOADER
 from cremage_tpu_torch.pipelines.loader import load_sdxl_bundle
 from cremage_tpu_torch.pipelines.sdxl import SDXLPipeline
 from tests.conftest import assert_img01_close
+from tests.test_torch_pipeline import (  # noqa: F401
+    shared_template, cheap_jax,
+)
 from tests.test_torch_sdxl import (
     ADM, CLIP_KW, CTX, G_HID, L_HID, OC_KW, R_ADM, REF_KW, UNET_KW,
 )
@@ -157,9 +161,6 @@ def files(tmp_path_factory):
     return {k: str(v) for k, v in paths.items()}
 
 
-_TEMPLATES = {}
-
-
 def _jax_bundle(files, monkeypatch, **kw):
     """JAX's load_sdxl_bundle on the files (by default with the LoRA and
     the TI directory; `kw` adds to or overrides its arguments), with its
@@ -178,16 +179,13 @@ def _jax_bundle(files, monkeypatch, **kw):
     tiny = {(1, 77, 2048): (1, 77, CTX), (1, 2816): (1, ADM),
             (1, 77, 1280): (1, 77, G_HID), (1, 2560): (1, R_ADM)}
 
+    memo = shared_template(_jax_template)
+
     def tiny_template(model, *args):
         # memoized: each trace of a model's init takes a second or more,
         # and bundles share the VAE's and the towers'
-        args = [jnp.zeros(tiny[a.shape]) if a.shape in tiny else a
-                for a in args]
-        key = (type(model).__name__, repr(model.cfg),
-               tuple((a.shape, str(a.dtype)) for a in args))
-        if key not in _TEMPLATES:
-            _TEMPLATES[key] = _jax_template(model, *args)
-        return _TEMPLATES[key]
+        return memo(model, *[jnp.zeros(tiny[a.shape]) if a.shape in tiny
+                             else a for a in args])
 
     monkeypatch.setattr(JLOADER, "_template", tiny_template)
     kw = {"loras": [(files["lora"], LORA_WEIGHT)],
@@ -238,9 +236,19 @@ def _jax_noise(seed, shape, n_steps):
     return first, steps
 
 
-def test_loader_and_generate_match_jax(files, port_bundle, monkeypatch):
-    """One test, so that the JAX bundle is loaded once per run."""
-    jb, tb = _jax_bundle(files, monkeypatch), port_bundle
+@pytest.fixture(scope="module")
+def jax_bundle(files):
+    """JAX's bundle of the files (with the LoRA and the TI directory),
+    shared by the module's two parity tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        return _jax_bundle(files, mp)
+
+
+def test_loader_and_generate_match_jax(files, port_bundle, jax_bundle):
+    """The weights of both loaders, then generate() txt2img; img2img is the
+    next test's (the two JAX sampler programs compile apart, and one test
+    for both took over 20 s)."""
+    jb, tb = jax_bundle, port_bundle
     report = tb.load_report
     assert report["loras"] == [dict(path=files["lora"], merged=len(LORA),
                                     skipped=0)]
@@ -255,37 +263,46 @@ def test_loader_and_generate_match_jax(files, port_bundle, monkeypatch):
              convert.clip_jax_name, LORA_TARGETS["te"])
     _compare(tb.conditioner.open_clip, jcond.open_clip[1]["params"],
              convert.openclip_jax_name, LORA_TARGETS["te2"])
-
-    jpipe, tpipe = JPipeline(jb), SDXLPipeline(tb, device="cpu")
-    init01 = np.random.RandomState(3).uniform(-1, 1, (64, 64, 3)).astype(np.float32)
-    for case, extra, kw in (
-            ("txt2img", {}, {}),
-            ("img2img", dict(sampler="EulerAncestralSampler", sampling_steps=4,
-                             strength=0.75, discretization="EDMDiscretization"),
-             dict(init_image=init01))):
-        opts = dict(OPTS, **extra)
-        # jitted: the JAX pipeline's scanned sampler compiles in less time
-        # than its eager ops take (14 s against 39 s here)
-        want = jpipe.generate(JOptions(**opts), **kw)
-        n_steps = 3 if case == "txt2img" else max(1, int(0.75 * 4))
-        first, steps = _jax_noise(42, (2, 8, 8, 4), n_steps)
-        msgs = []
-        got = tpipe.generate(
-            GenerationOptions(**opts), status_cb=msgs.append,
-            noise=lambda seed, device: ArrayNoise(first, steps, device,
-                                                  encode=first), **kw)
-        assert len(got) == len(want) == 2
-        for (gi, gm), (wi, wm) in zip(got, want):
-            assert_img01_close(gi, wi, float_tol=2.0 / 255.0)
-            assert gm == wm, case
-        assert msgs[:2] == ["batch 1/1: encoding prompt", "Sampling 1 / %d"
-                            % n_steps] and msgs[-1] == "decoding"
+    _check_generate(jb, tb, "txt2img", {}, {})
     # the TI tag and the LoRA's text modules moved the conditioning
     c = tb.conditioner
     a = c.encode_cond("a dog <embedding:two.pt>", orig_size=(64, 64))
     b = c.encode_cond("a dog", orig_size=(64, 64))
     assert np.abs(a["crossattn"] - b["crossattn"]).max() > 1e-3
     assert np.abs(a["vector"] - b["vector"]).max() > 1e-3
+
+
+def test_img2img_from_the_files_matches_jax(port_bundle, jax_bundle):
+    """generate() img2img (Euler ancestral under the EDM discretization)
+    on both loaders' bundles."""
+    init01 = np.random.RandomState(3).uniform(-1, 1, (64, 64, 3)).astype(np.float32)
+    _check_generate(jax_bundle, port_bundle, "img2img",
+                    dict(sampler="EulerAncestralSampler", sampling_steps=4,
+                         strength=0.75, discretization="EDMDiscretization"),
+                    dict(init_image=init01))
+
+
+def _check_generate(jb, tb, case, extra, kw):
+    """generate() on both bundles, the port handed the noise the JAX
+    pipeline draws: images within 2/255 (module docstring), the same
+    metadata, the port's statuses in order."""
+    opts = dict(OPTS, **extra)
+    # jitted: the JAX pipeline's scanned sampler compiles in less time
+    # than its eager ops take (14 s against 39 s here)
+    want = JPipeline(jb).generate(JOptions(**opts), **kw)
+    n_steps = 3 if case == "txt2img" else max(1, int(0.75 * 4))
+    first, steps = _jax_noise(42, (2, 8, 8, 4), n_steps)
+    msgs = []
+    got = SDXLPipeline(tb, device="cpu").generate(
+        GenerationOptions(**opts), status_cb=msgs.append,
+        noise=lambda seed, device: ArrayNoise(first, steps, device,
+                                              encode=first), **kw)
+    assert len(got) == len(want) == 2
+    for (gi, gm), (wi, wm) in zip(got, want):
+        assert_img01_close(gi, wi, float_tol=2.0 / 255.0)
+        assert gm == wm, case
+    assert msgs[:2] == ["batch 1/1: encoding prompt", "Sampling 1 / %d"
+                        % n_steps] and msgs[-1] == "decoding"
 
 
 def test_loader_refuses_keys_of_no_model(files, tmp_path, monkeypatch):
@@ -332,7 +349,10 @@ def test_generate_over_http_from_the_config(files, monkeypatch, tmp_path):
     def drain():
         msgs = []
         while not any(isinstance(m, dict) and "job_done" in m for m in msgs):
-            msgs += call("/v1/status")["messages"]
+            got = call("/v1/status")["messages"]
+            msgs += got
+            if not got:     # leave the GIL to the job's thread
+                time.sleep(0.02)
         return msgs
 
     try:

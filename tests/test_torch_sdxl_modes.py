@@ -19,6 +19,7 @@ conditioner is held to 2e-5, as the base conditioner is.
 """
 import base64
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +50,7 @@ from cremage_tpu_torch.pipelines import sdxl as X
 from cremage_tpu_torch.pipelines.loader import load_sdxl_bundle
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
 from tests.conftest import assert_img01_close
-from tests.test_torch_pipeline import jax_params
+from tests.test_torch_pipeline import jax_params, cheap_jax  # noqa: F401
 from tests.test_torch_sdxl import (
     CLIP_KW, G_HID, L_HID, OC_KW, R_ADM, REF_KW, TI_G_TOKENS, UNET_KW,
 )
@@ -173,25 +174,19 @@ def _noise(key, shape, n_steps):
 
 
 def test_files_and_generate_match_jax(xl_files, monkeypatch):
-    """One test, so that the JAX bundles load once per run: the refiner and
-    inpainting files through both loaders, then generate() on two jobs
-    that take every new route: the base model's inpainting (img2img and
-    the composite) with LCM and an LCM refiner pass (LCM's img2img grids),
-    and the 9-channel model (from unit noise scaled by sqrt(1 + sigma0^2))
-    with Euler ancestral."""
+    """The refiner file through both loaders (the JAX bundles load once per
+    run: one test), then generate() on the base model's inpainting
+    (img2img and the composite) with LCM and an LCM refiner pass (LCM's
+    img2img grids). The 9-channel model's file and job are the next
+    test's."""
     paths = xl_files
     lora = [(paths["lora"], LORA_WEIGHT)]
     jb = _jax_bundle(paths, monkeypatch, refiner_ckpt=paths["refiner"])
-    ji = _jax_bundle(dict(paths, model=paths["inpaint"]), monkeypatch,
-                     loras=(), inpainting=True)
     with pytest.MonkeyPatch.context() as mp:
         tb = _port_bundle(mp, paths["model"], refiner_ckpt=paths["refiner"],
                           loras=lora, embedding_dir=paths["emb"])
-        ti = _port_bundle(mp, paths["inpaint"], inpainting=True,
-                          embedding_dir=paths["emb"])
     # weights: the refiner's UNet and bigG as its file holds them (no
-    # LoRA: its te2 modules moved the base model's bigG only), the
-    # 9-channel UNet with its conv_in
+    # LoRA: its te2 modules moved the base model's bigG only)
     assert tb.refiner_conditioner.refiner_mode
     assert tb.refiner_conditioner.clip_l is None
     _equal(tb.refiner_unet, jb.refiner_params["params"])
@@ -203,53 +198,69 @@ def test_files_and_generate_match_jax(xl_files, monkeypatch):
             sorted(LORA_TARGETS["te2"])[0]).weight,
         tb.refiner_conditioner.open_clip.get_submodule(
             sorted(LORA_TARGETS["te2"])[0]).weight)
-    assert ti.inpaint and not tb.inpaint and jb.inpaint is False
+    assert not tb.inpaint and jb.inpaint is False
+    assert set(tb.load_report["files"]) == {paths["model"], paths["refiner"],
+                                            paths["lora"]}
+    _check_job("base inpainting, LCM, refiner", jb, tb,
+               dict(sampler="LCM", sampling_steps=4, strength=STRENGTH,
+                    refiner_strength=REFINER_STRENGTH, mode="inpainting"),
+               max(1, int(STRENGTH * 4)))
+
+
+def test_inpainting_file_and_generate_match_jax(xl_files, monkeypatch):
+    """The 9-channel inpainting file through both loaders (its UNet with
+    its conv_in, its VAE), then generate() with Euler ancestral from unit
+    noise scaled by sqrt(1 + sigma0^2)."""
+    paths = xl_files
+    ji = _jax_bundle(dict(paths, model=paths["inpaint"]), monkeypatch,
+                     loras=(), inpainting=True)
+    with pytest.MonkeyPatch.context() as mp:
+        ti = _port_bundle(mp, paths["inpaint"], inpainting=True,
+                          embedding_dir=paths["emb"])
+    assert ti.inpaint
     assert ti.unet.input_blocks[0][0].weight.shape[1] == 9
     _equal(ti.unet, ji.unet_params["params"])
     _equal(ti.vae, ji.vae_params["params"])
-    assert set(tb.load_report["files"]) == {paths["model"], paths["refiner"],
-                                            paths["lora"]}
+    _check_job("9-channel inpainting", ji, ti,
+               dict(sampler="EulerAncestralSampler", sampling_steps=3,
+                    mode="inpainting"), 3)
 
+
+def _check_job(case, jbundle, tbundle, extra, n_steps):
+    """generate() of an inpainting job on both bundles, the port handed
+    JAX's noise (the refiner's from fold_in(key, 99)): images within the
+    tolerance of the module docstring, the original kept outside the
+    mask, the statuses."""
     rng = np.random.RandomState(7)
     init = rng.uniform(-1, 1, (64, 64, 3)).astype(np.float32)
     mask = np.zeros((64, 64), np.float32)
     mask[16:48, 8:40] = 1.0
     shape = (2, 8, 8, 4)
-    t_enc = max(1, int(STRENGTH * 4))
-    jobs = [
-        ("base inpainting, LCM, refiner", jb, tb,
-         dict(sampler="LCM", sampling_steps=4, strength=STRENGTH,
-              refiner_strength=REFINER_STRENGTH, mode="inpainting"), t_enc),
-        ("9-channel inpainting", ji, ti,
-         dict(sampler="EulerAncestralSampler", sampling_steps=3,
-              mode="inpainting"), 3),
-    ]
     kw = dict(init_image=init, mask_image=mask)
-    for case, jbundle, tbundle, extra, n_steps in jobs:
-        opts = dict(BASE, **extra)
-        want = JPipeline(jbundle).generate(JOptions(**opts), **kw)
-        key = key_for_image(42, 0)
-        first, steps = _noise(key, shape, n_steps)
-        r_steps = max(1, int(REFINER_STRENGTH * opts["sampling_steps"]))
-        r_first, r_draws = _noise(jax.random.fold_in(key, 99), shape, r_steps)
-        msgs = []
-        got = X.SDXLPipeline(tbundle, device="cpu").generate(
-            GenerationOptions(**opts), status_cb=msgs.append,
-            noise=lambda seed, device: ArrayNoise(
-                first, steps, device, encode=first,
-                refiner=ArrayNoise(None, r_draws, device, encode=r_first)),
-            **kw)
-        assert len(got) == len(want) == 2
-        for (gi, gm), (wi, wm) in zip(got, want):
-            assert_img01_close(gi, wi, float_tol=2.0 / 255.0)
-            assert gm == wm, case
-        refined = "refiner_strength" in extra
-        assert ("refining" in msgs) == refined, case
-        assert msgs[0] == "batch 1/1: encoding prompt" and msgs[-1] == "decoding"
-        keep = mask < 0.5               # the original outside the mask
-        for gi, _ in got:
-            np.testing.assert_allclose(gi[keep], ((init + 1) / 2)[keep],
-                                       atol=1e-6)
+    opts = dict(BASE, **extra)
+    want = JPipeline(jbundle).generate(JOptions(**opts), **kw)
+    key = key_for_image(42, 0)
+    first, steps = _noise(key, shape, n_steps)
+    r_steps = max(1, int(REFINER_STRENGTH * opts["sampling_steps"]))
+    r_first, r_draws = _noise(jax.random.fold_in(key, 99), shape, r_steps)
+    msgs = []
+    got = X.SDXLPipeline(tbundle, device="cpu").generate(
+        GenerationOptions(**opts), status_cb=msgs.append,
+        noise=lambda seed, device: ArrayNoise(
+            first, steps, device, encode=first,
+            refiner=ArrayNoise(None, r_draws, device, encode=r_first)),
+        **kw)
+    assert len(got) == len(want) == 2
+    for (gi, gm), (wi, wm) in zip(got, want):
+        assert_img01_close(gi, wi, float_tol=2.0 / 255.0)
+        assert gm == wm, case
+    refined = "refiner_strength" in extra
+    assert ("refining" in msgs) == refined, case
+    assert msgs[0] == "batch 1/1: encoding prompt" and msgs[-1] == "decoding"
+    keep = mask < 0.5               # the original outside the mask
+    for gi, _ in got:
+        np.testing.assert_allclose(gi[keep], ((init + 1) / 2)[keep],
+                                   atol=1e-6)
 
 
 def test_lcm_takes_vanilla_cfg_only():
@@ -306,7 +317,10 @@ def test_refiner_and_inpainting_over_http(xl_files, monkeypatch, tmp_path):
     def drain():
         msgs = []
         while not any(isinstance(m, dict) and "job_done" in m for m in msgs):
-            msgs += call("/v1/status")["messages"]
+            got = call("/v1/status")["messages"]
+            msgs += got
+            if not got:     # leave the GIL to the job's thread
+                time.sleep(0.02)
         return msgs
 
     try:
