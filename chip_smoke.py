@@ -122,16 +122,42 @@ is nonzero and no final line is printed:
    finite and not zeros; the full-width transformer's velocity in fp8
    and int8 against bf16's, and one double and one single block in bf16
    (K1) against fp32 (the plain versions), on the card;
-14. new paths' shapes: hooks record the shape of every K1 and K2 call of
+14. svd: SVD img2vid as the JAX package benchmarks it (bench_svd: 14
+   frames at 576x1024, 25 EulerEDMSampler steps over EDM sigmas (0.002,
+   700, rho 7), the LinearPredictionGuider from 1.0 to 2.5 over [uc; c],
+   so the video UNet runs at batch 28; one VAE decode per frame), from one
+   seeded random fp16 file at full width and depth under build/svd/
+   (4.5 GB): the video UNet (1.5 B parameters), the image VAE and the
+   ViT-H/14 image tower as published (the temporal convolutions OIDHW,
+   the tower's attention input projection fused), with keys of the
+   families the loader drops (the VideoDecoder's temporal layers, the
+   conditioner's other keys). The --config server (svd_model_path)
+   serves with generator_model_type "SVD", on an uploaded 576x1024
+   image: a warm-up of 2 steps (the load), the job twice (timed: seconds
+   a request and frames/s), once more with the shape hooks, and with
+   unet_quantize "float8_e4m3" a 2-step warm-up (a new load) and the job
+   once. Checks: every weight equals
+   its file's, or its 8-bit codes and scale io/quantize.py's of the
+   file's tensor; interpolation_frames (FILM) is refused; 14 finite,
+   non-constant 576x1024 frames a request; the K1 / K2 launches equal the
+   module tree's count (48 K1 a UNet evaluation: each of the 16 spatial
+   video transformers' spatial self- and cross-attention and its temporal
+   block's cross-attention over one key; the VAE's and the tower's) and
+   the recorded shapes' sum; the full-width video UNet over one CFG half
+   (14 frames) in bf16 against fp32 through the plain versions, on the
+   card;
+15. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
-   sd15_full, of sdxl's and sdxl_modes' requests and of flux's (the recorded calls
+   sd15_full, of sdxl's and sdxl_modes' requests, of flux's and of svd's
+   (the recorded calls
    must add up to the launch counts), and the same checks as 4 and 5 run
    at every shape the main path's rows do not hold (the safety checker's
    d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
-   refiner's at 12 and 24 among them, FLUX's d = 128), and at K2's H*W % 8 != 0 cases
+   refiner's at 12 and 24 among them, FLUX's d = 128, SVD's batch-28
+   calls over 9216 tokens and over one key), and at K2's H*W % 8 != 0 cases
    (K2_ANY_HW); each row lists the paths that run its shape with their
    calls per request;
-15. the kernels line (per-request totals over the main path's shapes, as
+16. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -168,7 +194,7 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=300, sd15_full=480,
-                sdxl=600, sdxl_modes=720, flux=900, new_shapes=480)
+                sdxl=600, sdxl_modes=720, flux=900, svd=600, new_shapes=600)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -216,20 +242,20 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
 SLEEP_CYCLES_PER_S = 2.0e9   # at least the H100's SM clock (1.98 GHz boost)
 
 
-def time_device(fn, reps: int, warmup: int = 3):
+def time_device(fn, reps: int, warmup: int = 3, tries: int = 8):
     """(device ms, dispatch ms) per call. The timed launches are enqueued
     behind a GPU-side sleep (`torch.cuda._sleep`) that outlasts their
     dispatch, so the events bracket the kernels back to back and not the
     host; the start event still pending after the enqueue shows that the
-    sleep covered it (else the sleep doubles and it is timed again).
-    Dispatch ms is `time_ms`'s host-inclusive time."""
+    sleep covered it (else the sleep doubles and it is timed again, up to
+    `tries` times). Dispatch ms is `time_ms`'s host-inclusive time."""
     import torch
 
     dispatch = time_ms(fn, reps, warmup)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     host_s = dispatch * reps / 1e3
-    for _ in range(8):
+    for _ in range(tries):
         t0 = time.perf_counter()
         torch.cuda._sleep(int(2 * host_s * SLEEP_CYCLES_PER_S) + 1_000_000)
         start.record()
@@ -243,6 +269,19 @@ def time_device(fn, reps: int, warmup: int = 3):
             return start.elapsed_time(end) / reps, dispatch
         host_s = 2 * max(host_s, enqueue_s)
     raise RuntimeError("time_device: the GPU sleep never outlasted the enqueue")
+
+
+def time_plain(fn):
+    """The plain version's device ms per call, and how it was timed: behind
+    the GPU sleep ("device"), or, where the enqueue of a call outlasts
+    three doublings of the sleep (a call over many head groups, whose
+    allocations wait on the card: K1's at (28, 9216, 9216, 5, 64) runs 56
+    of them), by events around two back-to-back calls ("host-inclusive";
+    the card's work, hundreds of ms a call, outweighs the dispatch)."""
+    try:
+        return time_device(fn, 3, 1, tries=3)[0], "device"
+    except RuntimeError:
+        return time_ms(fn, 2, 1), "host-inclusive"
 
 
 def kernel_name(mangled: str) -> str:
@@ -282,13 +321,14 @@ def ptxas_summary(log: str) -> dict:
 @contextlib.contextmanager
 def recording(*models):
     """While open, count the K1 and K2 calls of the models (bundles: their
-    UNets, VAEs and ControlNets, or a FLUX bundle's transformer and VAE;
-    or modules, such as the safety checker)
+    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX bundle's
+    transformer and VAE; or modules, such as the safety checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.clip import CLIPAttention
     from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
     from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.open_clip import _Attention
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
 
@@ -310,8 +350,8 @@ def recording(*models):
     def on_gn(mod, args):
         add(gn, tuple(args[0].shape) + (mod.eps, mod.fuse_silu))
 
-    def on_clip(mod, args):        # unmasked (the safety checker's): K1
-        x, mask = args
+    def on_clip(mod, args):        # unmasked (the safety checker's, the
+        x, mask = args             # SVD image tower's): K1
         if mask is None:
             b, n, c = x.shape
             add(attn, (b, n, n, mod.heads, c // mod.heads))
@@ -324,7 +364,8 @@ def recording(*models):
     hooks = []
     for model in models:
         if hasattr(model, "unet"):
-            parts = [model.unet, model.vae, getattr(model, "controlnet", None)]
+            parts = [model.unet, model.vae, getattr(model, "controlnet", None),
+                     getattr(model, "clip_vision", None)]
         elif hasattr(model, "vae"):        # a FLUX bundle
             parts = [model.model, model.vae]
         else:
@@ -337,7 +378,7 @@ def recording(*models):
                 hooks.append(m.register_forward_pre_hook(on_vae_attn))
             elif isinstance(m, GroupNorm):
                 hooks.append(m.register_forward_pre_hook(on_gn))
-            elif isinstance(m, CLIPAttention):
+            elif isinstance(m, (CLIPAttention, _Attention)):
                 hooks.append(m.register_forward_pre_hook(on_clip))
             elif isinstance(m, (DoubleBlock, SingleBlock)):
                 hooks.append(m.register_forward_pre_hook(on_flux))
@@ -423,13 +464,14 @@ def check_flash(attn, dev):
         flops = 4.0 * b * h * nq * nk * d
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
         ms, dispatch_ms = time_device(lambda: flash_attention(q, k, v), 20)
+        plain_ms, plain_timing = time_plain(
+            lambda: flash_attention_reference(q, k, v))
         row = dict(
             phase="flash_attention", shape=[b, nq, nk, h, d],
             instantiation=plan.instantiation,
             calls_by_path=calls, max_abs_err=err, tol=tol,
             ms=ms, dispatch_ms=dispatch_ms,
-            plain_ms=time_device(
-                lambda: flash_attention_reference(q, k, v), 3, 1)[0],
+            plain_ms=plain_ms, plain_timing=plain_timing,
             library_ms=time_device(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)[0],
             # what the kernel computes: d padded to plan.dp, every q row and
@@ -1949,8 +1991,9 @@ def spiece_model(words=FLUX_WORDS) -> bytes:
 
 
 def write_seeded_safetensors(path: Path, shapes: dict, dev, seed: int,
-                             tables=(), ties=None, extra=None):
-    """A .safetensors file of seeded random bf16 tensors, made on `dev` one
+                             tables=(), ties=None, extra=None, dtype="BF16"):
+    """A .safetensors file of seeded random bf16 (or `dtype`: "F16")
+    tensors, made on `dev` one
     at a time and streamed to disk (a 24 GB file never sits in host
     memory): weights N(0, 1 / (3 fan_in)) (the variance of torch's default
     Linear init), 1-D weights and scales 1 + 0.02 N, biases 0.02 N, the
@@ -1964,7 +2007,7 @@ def write_seeded_safetensors(path: Path, shapes: dict, dev, seed: int,
     from cremage_tpu_torch.io import checkpoint as CK
 
     ties, extra = ties or {}, extra or {}
-    specs = {k: ("BF16", tuple(v), 2) for k, v in shapes.items()}
+    specs = {k: (dtype, tuple(v), 2) for k, v in shapes.items()}
     for k, t in extra.items():
         specs[k] = (CK._NAMES[t.dtype], tuple(t.shape), t.element_size())
     header, off = {}, 0
@@ -1985,7 +2028,8 @@ def write_seeded_safetensors(path: Path, shapes: dict, dev, seed: int,
         f.write(raw)
         for k, (_, shape, _) in specs.items():
             if k in extra:
-                f.write(extra[k].contiguous().view(torch.uint8).numpy().tobytes())
+                f.write(extra[k].contiguous().reshape(-1).view(torch.uint8)
+                        .numpy().tobytes())
                 continue
             if k in ties:
                 f.write(kept.pop(ties[k]))
@@ -2002,7 +2046,7 @@ def write_seeded_safetensors(path: Path, shapes: dict, dev, seed: int,
                 for d in shape[1:]:
                     fan_in *= d
                 z = z / (3 * fan_in) ** 0.5
-            data = z.to(torch.bfloat16).view(torch.uint8).cpu().numpy().tobytes()
+            data = z.to(CK.DTYPES[dtype]).view(torch.uint8).cpu().numpy().tobytes()
             if k in ties.values():
                 kept[k] = data
             f.write(data)
@@ -2438,6 +2482,313 @@ def flux(dev, card, root: Path, res=FLUX_RES, steps=FLUX_STEPS,
     return rows, shapes, launches
 
 
+SVD_RES = (576, 1024)       # bench_svd's job: 14 frames, 25 EulerEDM steps,
+SVD_FRAMES, SVD_STEPS, SVD_REQUESTS = 14, 25, 2     # CFG over [uc; c]
+SVD_WARMUP_STEPS = 2
+SVD_FILE_GB = 10            # free disk the 4.5 GB file needs, with room
+
+
+def svd_configs():
+    """SVD's published widths and depths: the video UNet, the image VAE
+    and the OpenCLIP ViT-H/14 image tower, in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.clip_vision import vit_h14_config
+    from cremage_tpu_torch.models.vae import VAEConfig
+    from cremage_tpu_torch.models.video_unet import svd_unet_config
+
+    bf16 = torch.bfloat16
+    return dict(unet=svd_unet_config(dtype=bf16), vae=VAEConfig(dtype=bf16),
+                vit=vit_h14_config(dtype=bf16))
+
+
+def write_svd_file(root: Path, dev, cfgs: dict):
+    """SVD as published, one file of seeded random fp16 tensors under
+    `root`: the video UNet (the temporal convolutions OIDHW), the image VAE
+    under first_stage_model., the ViT-H image tower under
+    conditioner.embedders.0.open_clip.model.visual. with its attention
+    input projection fused, and keys of each dropped family (the
+    VideoDecoder's temporal layers, the conditioner's other keys); and a
+    config.yaml naming svd_model_path. Refuses to start without
+    SVD_FILE_GB of free disk. -> (paths, seconds)."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.models.clip_vision import CLIPVisionModel
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+    from cremage_tpu_torch.models.video_unet import VideoUNet
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < SVD_FILE_GB:
+        raise RuntimeError(f"svd: {free:.1f} GB free under {root}, the file "
+                           f"needs {SVD_FILE_GB} GB")
+    with torch.device("meta"):
+        models = {CK.PREFIX_UNET: VideoUNet(cfgs["unet"], SVD_FRAMES),
+                  CK.PREFIX_VAE: AutoencoderKL(cfgs["vae"]),
+                  CK.PREFIX_VISUAL_SVD: CLIPVisionModel(cfgs["vit"])}
+    shapes = {}
+    for prefix, model in models.items():
+        sd = model.state_dict()
+        if prefix == CK.PREFIX_VISUAL_SVD:
+            sd = fused_openclip(sd)
+        shapes.update({prefix + k: tuple(v.shape) for k, v in sd.items()})
+    gen = torch.Generator().manual_seed(61)
+    dropped = {k: torch.randn(shape, generator=gen).half() for k, shape in (
+        ("first_stage_model.decoder.mid.block_1.time_stack.in_layers.2.weight",
+         (512, 512, 3, 1, 1)),
+        ("first_stage_model.decoder.mid.block_1.mix_factor", (1,)),
+        ("first_stage_model.decoder.conv_out.time_mix_conv.weight",
+         (3, 3, 3, 1, 1)),
+        ("conditioner.embedders.0.open_clip.model.token_embedding.weight",
+         (49408, 1024)),
+        ("conditioner.embedders.0.open_clip.model.logit_scale", ()),
+        ("conditioner.embedders.3.encoder.encoder.conv_in.weight",
+         (128, 3, 3, 3)))}
+    paths = {"ckpt": root / "svd.safetensors", "config": root / "config.yaml"}
+    seconds = write_seeded_safetensors(paths["ckpt"], shapes, dev, 60,
+                                       extra=dropped, dtype="F16")
+    paths["config"].write_text(f"svd_model_path: '{root}'\n")
+    return {k: str(v) for k, v in paths.items()}, seconds
+
+
+def check_svd_weights(bundle, path, quantize):
+    """check_coded over the SVD bundle's models and its file."""
+    from cremage_tpu_torch.io import checkpoint as CK
+
+    parts = CK.split_svd(CK.load_safetensors(path))
+    return check_coded("svd_weights", quantize, {
+        "unet": (bundle.unet, parts[CK.PREFIX_UNET]),
+        "vae": (bundle.vae, parts[CK.PREFIX_VAE]),
+        "clip_vision": (bundle.clip_vision, parts[CK.PREFIX_VISUAL_SVD])})
+
+
+def svd_kernel_calls(bundle, steps: int, frames: int):
+    """(K1, K2) launches of an SVD request from the module tree: each of
+    the `steps` UNet evaluations (the [uc; c] batch in one call) runs every
+    attention and GroupNorm of the video UNet once (the temporal
+    self-attention is plain torch, not K1), the VAE encodes the
+    conditioning frame once and decodes each frame alone, and the image
+    tower runs once."""
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.open_clip import _Attention
+    from cremage_tpu_torch.models.unet import CrossAttention
+    from cremage_tpu_torch.models.vae import AttnBlock
+
+    vae = bundle.vae
+    tower = (count(bundle.clip_vision, _Attention)
+             if bundle.clip_vision is not None else 0)
+    return (steps * count(bundle.unet, CrossAttention)
+            + count(vae.encoder, AttnBlock)
+            + frames * count(vae.decoder, AttnBlock) + tower,
+            steps * count(bundle.unet, GroupNorm)
+            + count(vae.encoder, GroupNorm)
+            + frames * count(vae.decoder, GroupNorm))
+
+
+def check_unet_svd(unet, dev, frames=SVD_FRAMES):
+    """The full-width video UNet over one CFG half (1 x `frames` frames at
+    SVD's 72x128 latent) in bf16 through the kernels against the same
+    weights in fp32 through the plain versions, both on the card."""
+    import torch
+
+    from cremage_tpu_torch.models.video_unet import VideoUNet
+
+    cfg = unet.cfg
+    with torch.device("meta"):
+        ref = VideoUNet(dataclasses.replace(cfg, dtype=torch.float32),
+                        unet.num_frames)
+    ref.load_state_dict({k: v.float() for k, v in
+                         unet.state_dict().items()}, assign=True)
+    g = torch.Generator(device=dev).manual_seed(62)
+    h, w = SVD_RES[0] // 8, SVD_RES[1] // 8
+    x = torch.randn(frames, cfg.in_channels, h, w, device=dev, generator=g)
+    t = torch.full((frames,), 0.25 * float(torch.log(torch.tensor(10.0))),
+                   device=dev)
+    ctx = torch.randn(frames, 1, cfg.context_dim, device=dev, generator=g)
+    y = torch.randn(frames, cfg.adm_in_channels, device=dev, generator=g)
+    with torch.no_grad():
+        got = unet(x, t, ctx, y).float()
+        with plain_kernels():
+            want = ref.eval()(x, t, ctx, y)
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_l2 = float((got - want).norm() / want.norm())
+    # bf16 rounds each layer's output to 2^-9 relative and the errors add
+    # up along the residual stream, as for the image UNets
+    tol = 5e-2
+    row = dict(phase="svd_unet_full_width", shape=[frames, cfg.in_channels,
+                                                   h, w],
+               max_rel_err=rel, rel_l2_err=rel_l2, tol=tol,
+               finite=bool(torch.isfinite(got).all()))
+    emit(row)
+    del ref, want
+    torch.cuda.empty_cache()
+    if not (row["finite"] and rel <= tol):
+        raise AssertionError(f"svd_unet_full_width: max relative error "
+                             f"{rel} > {tol}")
+    return row
+
+
+def svd_test_image(h: int, w: int):
+    """A smooth (h, w, 3) uint8 picture."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w] / np.array([h, w])[:, None, None]
+    rgb = np.stack([np.sin(7 * xx + 2 * yy), np.cos(5 * yy - 3 * xx),
+                    np.sin(4 * (xx + yy) + 1)], -1)
+    return np.round((rgb * 0.45 + 0.5) * 255).astype(np.uint8)
+
+
+def svd(dev, card, root: Path, res=SVD_RES, frames=SVD_FRAMES,
+        steps=SVD_STEPS, requests=SVD_REQUESTS, check_model=True):
+    """The phase svd: SVD img2vid from one full-width file through
+    /v1/generate (bench_svd's job on an uploaded 576x1024 image): a
+    warm-up of SVD_WARMUP_STEPS steps that loads, `requests` timed
+    requests, one more with the shape hooks, then with unet_quantize
+    "float8_e4m3" a warm-up that loads anew and one timed request. ->
+    (rows, {path: (K1 shapes, K2 shapes)}, launches of the timed
+    requests)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.io.png import encode_png
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths, seconds = write_svd_file(root, dev, svd_configs())
+    rows = [dict(phase="svd_file", seconds=seconds,
+                 bytes=os.path.getsize(paths["ckpt"]))]
+    emit(rows[0])
+    srv = build_server(["--config", paths["config"], "--port", "0"])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    upload = client.call("/v1/upload", {"image": base64.b64encode(encode_png(
+        svd_test_image(*res))).decode()})["path"]
+    job = {"init_img": upload, "svd_model": Path(paths["ckpt"]).name,
+           "num_frames": frames, "sampling_steps": steps, "fps_id": 6,
+           "motion_bucket_id": 127, "cond_aug": 0.02}
+    finite, runs, shapes, loads = [], {}, {}, {}
+
+    def resident():
+        return srv.worker._backends["SVD"].resident.instance.bundle
+
+    def run(params, record=False):
+        """-> (seconds, (K1, K2), frames, finite decodes, shapes)."""
+        finite.clear()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            rec = (stack.enter_context(recording(resident()))
+                   if record else None)
+            t1 = time.perf_counter()
+            client.generate("image_to_video", params, "SVD")
+            out = served_images(client.drain(1))
+            wall = time.perf_counter() - t1
+        return wall, read_counts(), out, list(finite), rec and rec[:2]
+
+    def watch_decodes(bundle):
+        return bundle.vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+
+    def load_row(kind, first):
+        bundle = resident()
+        loads[kind] = dict(
+            first_run_seconds=first[0],
+            resident_bytes=torch.cuda.memory_allocated(),
+            quantize=bundle.load_report.get("quantize"),
+            files={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9)
+                           / 1e9)
+                   for k, v in bundle.load_report["files"].items()})
+        rows.append(check_svd_weights(bundle, paths["ckpt"], kind))
+        emit(rows[-1])
+        return bundle
+
+    try:
+        refused = expect_refused(client, dict(job, interpolation_frames=1),
+                                 "FILM interpolation", "SVD")
+        bundle = load_row("none", run(dict(job, sampling_steps=SVD_WARMUP_STEPS,
+                                           seed=1)))
+        hook = watch_decodes(bundle)
+        finite.clear()
+        reset_counts()
+        t1 = time.perf_counter()
+        for r in range(requests):
+            client.generate("image_to_video", dict(job, seed=10 + r), "SVD")
+        served = served_images(client.drain(requests))
+        wall = time.perf_counter() - t1
+        launches, decodes = read_counts(), list(finite)
+        runs["svd 576x1024"] = run(dict(job, seed=12), record=True)
+        hook.remove()
+        shapes["svd 576x1024"] = runs["svd 576x1024"][4]
+        want = [requests * k for k in svd_kernel_calls(bundle, steps, frames)]
+        if check_model:
+            rows.append(check_unet_svd(bundle.unet, dev))
+        del bundle
+        params = dict(job, unet_quantize="float8_e4m3", seed=13)
+        load_row("float8_e4m3", run(dict(params,
+                                         sampling_steps=SVD_WARMUP_STEPS)))
+        runs["svd float8_e4m3"] = run(params)
+    finally:
+        srv.stop()
+    held = srv.worker._backends["SVD"].resident
+    held.key = held.instance = None         # free the served bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    stds = [float(np.std(p.astype(np.float32))) for p, _ in served]
+    row = dict(phase="svd", card=card, frames=frames, steps=steps,
+               res=list(res), requests=requests, seconds=wall,
+               seconds_per_request=wall / requests,
+               frames_per_s=len(served) / wall, loads=loads,
+               frames_served=len(served), pixel_std_min=min(stds),
+               frame_shapes=sorted({tuple(p.shape) for p, _ in served}),
+               decodes_finite=all(decodes), decodes=len(decodes),
+               refused=refused, flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    if len(served) != requests * frames or row["frame_shapes"] != [
+            (res[0], res[1], 3)] or not all(decodes) \
+            or len(decodes) != requests * frames or min(stds) <= 0.0:
+        raise AssertionError(f"svd: {len(served)} frames of "
+                             f"{row['frame_shapes']}, finite decodes "
+                             f"{decodes}, least pixel std {min(stds)}")
+    if "NotImplementedError" not in (refused or ""):
+        raise AssertionError(f"svd: interpolation_frames not refused: "
+                             f"{refused}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"svd: kernel launches {launches} != derived "
+                             f"{want}")
+    rows.append(row)
+    for name, (sec, (k1, k2), imgs, fin, rec) in runs.items():
+        r = dict(phase="svd_request", request=name, card=card, seconds=sec,
+                 frames=len(imgs), frame_shapes=sorted(
+                     {tuple(p.shape) for p, _ in imgs}),
+                 pixel_std_min=min(float(np.std(p.astype(np.float32)))
+                                   for p, _ in imgs),
+                 decodes_finite=fin, flash_attention_launches=k1,
+                 group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0] // requests,
+                 expected_group_norm_silu=want[1] // requests)
+        if rec is not None:
+            r["recorded_calls"] = [sum(rec[0].values()), sum(rec[1].values())]
+        emit(r)
+        if len(imgs) != frames or r["frame_shapes"] != [(res[0], res[1], 3)] \
+                or r["pixel_std_min"] <= 0.0 or (
+                fin and fin != [True] * frames):
+            raise AssertionError(f"{name}: {r}")
+        if (k1, k2) != (r["expected_flash_attention"],
+                        r["expected_group_norm_silu"]) or (
+                rec is not None and tuple(r["recorded_calls"]) != (k1, k2)):
+            raise AssertionError(f"{name}: kernel launches {(k1, k2)}, "
+                                 f"derived {want}, recorded "
+                                 f"{r.get('recorded_calls')}")
+        rows.append(r)
+    return rows, shapes, launches
+
+
 def full_configs():
     """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
     UNet's encoder on 4 latent channels) and the CompVis safety checker,
@@ -2575,6 +2926,14 @@ def main() -> int:
     finally:
         shutil.rmtree(flux_root, ignore_errors=True)
     paths.update(flux_paths)
+    torch.cuda.empty_cache()
+    watchdog("svd")
+    svd_root = REPO / "build" / "svd"
+    try:
+        _, svd_paths, svd_launches = svd(dev, card, svd_root)
+    finally:
+        shutil.rmtree(svd_root, ignore_errors=True)
+    paths.update(svd_paths)
     paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
     torch.cuda.empty_cache()
     watchdog("new_shapes")
@@ -2593,7 +2952,8 @@ def main() -> int:
                 "sd15_full": full_launches[key.startswith("group")],
                 "sdxl": sdxl_launches[key.startswith("group")],
                 "sdxl_modes": xl_mode_launches[key.startswith("group")],
-                "flux": flux_launches[key.startswith("group")]}
+                "flux": flux_launches[key.startswith("group")],
+                "svd": svd_launches[key.startswith("group")]}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

@@ -28,6 +28,14 @@ the job names the four files (`ckpt`: the BFL transformer, `vae_ckpt`,
 "float8_e5m2", "int8", "none"), as in the JAX backend. Like it, the
 factory passes no T5 tokenizer, so the T5 context of a served request is
 zeros whatever the files (pipelines/flux.py `FluxConditioner`).
+
+`svd_factory(prefs)` is the factory of the "SVD" model type (img2vid):
+JAX's parameters (`init_img`; `ckpt`, or `svd_model` under
+svd_model_path; num_frames, sampling_steps, fps_id, motion_bucket_id,
+cond_aug, seed, unet_quantize), JAX's resident key and errors, one result
+per frame with {"frame": i, **the job's scalar parameters}. FILM
+interpolation and the mp4 writer (`interpolation_frames`, `make_mp4`,
+`output_mp4`) are not ported: they raise.
 """
 from __future__ import annotations
 
@@ -187,6 +195,64 @@ def flux_factory(prefs: Preferences, device=None,
                 t5_ckpt=params.get("t5_ckpt"), quantize=quantize,
                 device=device), device=device))
             pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+def svd_factory(prefs: Preferences, device=None,
+                resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for SVD
+    img2vid jobs, loading the bundle from the file the job names."""
+    from cremage_tpu_torch.pipelines.loader import load_svd_bundle
+    from cremage_tpu_torch.pipelines.svd import (
+        SVDOptions, SVDPipeline, check_supported,
+    )
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            init = load_image(params, "init_img")
+            if init is None:
+                raise FileNotFoundError("SVD requires init_img")
+            ckpt = params.get("ckpt")
+            if not ckpt and params.get("svd_model"):
+                ckpt = os.path.join(prefs.svd_model_path, params["svd_model"])
+            if not ckpt:
+                raise FileNotFoundError(
+                    "SVD checkpoint path not provided (ckpt or svd_model)")
+            opts = SVDOptions(
+                num_frames=int(params.get("num_frames", 14)),
+                num_steps=int(params.get("sampling_steps", 25)),
+                fps_id=int(params.get("fps_id", 6)),
+                motion_bucket_id=int(params.get("motion_bucket_id", 127)),
+                cond_aug=float(params.get("cond_aug", 0.02)),
+                seed=int(params.get("seed", -1)),
+                deep_cache=int(params.get("deep_cache", 1)),
+                deep_cache_branch=int(params.get("deep_cache_branch", 1)),
+                tome_ratio=float(params.get("tome_ratio", 0.0)),
+                ada_cache=float(params.get("ada_cache", 0.0)))
+            film = {k: params[k] for k in ("interpolation_frames", "make_mp4",
+                                           "output_mp4") if params.get(k)}
+            if film:
+                raise NotImplementedError(
+                    f"FILM interpolation and the mp4 writer are not ported "
+                    f"(ROADMAP.md, M15b: they need cv2): {film}")
+            check_supported(opts)       # before a model is loaded for it
+            quantize = params.get("unet_quantize") or None
+            pipe = resident.get(
+                ("svd", ckpt, opts.num_frames, quantize),
+                lambda: SVDPipeline(load_svd_bundle(
+                    ckpt, num_frames=opts.num_frames, quantize_unet=quantize,
+                    device=device), device=device))
+            frames = pipe.sample((init + 1) / 2, opts, status_cb=status_cb,
+                                 output_dir=params.get("outdir"))
+            meta = {k: v for k, v in params.items()
+                    if isinstance(v, (int, float, str))}
+            for i, f in enumerate(frames):
+                result_cb(f, {"frame": i, **meta})
         generate.resident = resident
         return generate
 

@@ -10,12 +10,13 @@ EngineWorker with the same JSON contract:
                       a job's init_img / mask_img names
 
 Run `python -m cremage_tpu_torch.app.server --config config.yaml --port N`
-to serve SD1.5, SDXL and FLUX.1-schnell on the GPU from the checkpoint
+to serve SD1.5, SDXL, FLUX.1-schnell and SVD on the GPU from the checkpoint
 files that the config (the JAX package's config.yaml: ldm_model_path /
 ldm_model, ldm_inpaint_model, embedding_path; sdxl_ldm_model_path /
 sdxl_ldm_model, sdxl_ldm_inpaint_model, sdxl_embedding_path) and each job
 (ckpt, vae_ckpt, refiner_ckpt, lora_models, control_net; FLUX's clip_ckpt,
-t5_ckpt) name (app/backends.py); one model of any family stays
+t5_ckpt; SVD's ckpt or svd_model under svd_model_path) name
+(app/backends.py); one model of any family stays
 resident. $SAFETY_CHECKER_PATH names the image safety checker's weights.
 `--deny-term` adds a term to the prompt gate's deny list. For smoke runs
 only, `--random-weights --seed N [--inpaint]` serves SD1.5 bundles of
@@ -40,7 +41,7 @@ import numpy as np
 from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
-    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_SD_1_5, GMT_SDXL,
+    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_SD_1_5, GMT_SDXL, GMT_SVD,
     GenerationOptions, MODE_INPAINTING,
 )
 from cremage_tpu_torch.io.png import decode_png, encode_png, read_png
@@ -142,16 +143,18 @@ class ApiServer:
             )
             from cremage_tpu_torch.samplers.edm import SGM_SAMPLER_NAMES
 
-            # SDXL runs the sgm menu, SD1.5 the k-diffusion/DDIM names, as
-            # the JAX server lists them; both run the extra samplers
-            # FLUX (flow Euler) takes the k-diffusion names and ignores
-            # them, as in the JAX server
-            return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_FLUX_1_SCHNELL],
+            # SDXL and SVD run the sgm menu, SD1.5 the k-diffusion/DDIM
+            # names, as the JAX server lists them; both run the extra
+            # samplers. FLUX (flow Euler) takes the k-diffusion names and
+            # ignores them, as in the JAX server
+            return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_FLUX_1_SCHNELL,
+                                    GMT_SVD],
                     "modes": list(MODES), "samplers": list(SAMPLER_MENU),
                     "extra_samplers": list(EXTRA_SAMPLERS),
                     "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
                                          GMT_SDXL: list(SGM_SAMPLER_NAMES),
-                                         GMT_FLUX_1_SCHNELL: list(SAMPLER_MENU)}}
+                                         GMT_FLUX_1_SCHNELL: list(SAMPLER_MENU),
+                                         GMT_SVD: list(SGM_SAMPLER_NAMES)}}
         if path == "/v1/upload" and method == "POST":
             if not isinstance(body, dict) or "image" not in body:
                 raise BadRequest("body must be {\"image\": <b64 PNG>}")
@@ -342,6 +345,7 @@ def build_server(argv=None) -> ApiServer:
     if args.config:
         from cremage_tpu_torch.app.backends import (
             ResidentInstance, flux_factory, sd15_factory, sdxl_factory,
+            svd_factory,
         )
         from cremage_tpu_torch.core.config import load_preferences
 
@@ -352,6 +356,8 @@ def build_server(argv=None) -> ApiServer:
                                                        resident=resident))
         worker.register_backend(GMT_FLUX_1_SCHNELL, flux_factory(
             prefs, resident=resident))
+        worker.register_backend(GMT_SVD, svd_factory(prefs,
+                                                     resident=resident))
     else:
         from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
 

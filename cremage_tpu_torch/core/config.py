@@ -141,7 +141,8 @@ class Preferences:
     ldm_model (ldm_inpaint_model for mode "inpainting") and TI files from
     embedding_path; the SDXL backend loads sdxl_ldm_model_path /
     sdxl_ldm_model (sdxl_ldm_inpaint_model, when set, for mode
-    "inpainting") and TI files from sdxl_embedding_path. A job's VAE,
+    "inpainting") and TI files from sdxl_embedding_path; the SVD backend
+    loads svd_model_path joined with a job's svd_model. A job's VAE,
     ControlNet and LoRA paths are used as given, as in the JAX backends, so
     control_model_path and lora_model_path only tell a client where the
     model files are."""
@@ -156,6 +157,7 @@ class Preferences:
     sdxl_ldm_model: str = "None"
     sdxl_ldm_inpaint_model: str = "None"
     sdxl_embedding_path: str = "models/embeddings_sdxl"
+    svd_model_path: str = "models/svd"
 
 
 _PREF_FIELDS = {f.name for f in dataclasses.fields(Preferences)}

@@ -21,6 +21,8 @@ latents). The draws of one batch, with the JAX key each stands for
   two draws a step, LCM's re-noise and every other sampler one);
 - `posterior`: the VAE posterior sample of img2img's init image,
   normal(fold_in(key, 7));
+- `cond_aug`: the noise SVD adds to its conditioning frame,
+  normal(fold_in(key, 3));
 - `hires()`: the source of the hires fix's second pass, whose key is
   fold_in(key, 1);
 - `refiner()`: the source of the SDXL refiner's pass, whose key is
@@ -71,6 +73,9 @@ class NoiseSource(Protocol):
     def posterior(self, shape: Tuple[int, ...]) -> torch.Tensor:
         """Standard-normal noise of the VAE posterior sample."""
 
+    def cond_aug(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        """Standard-normal noise of SVD's conditioning-frame augmentation."""
+
     def hires(self) -> "NoiseSource":
         """The noise source of the hires fix's second pass."""
 
@@ -104,6 +109,9 @@ class GeneratorNoise:
     def posterior(self, shape):
         return self._draw(shape)
 
+    def cond_aug(self, shape):
+        return self._draw(shape)
+
     def hires(self):
         return self
 
@@ -115,13 +123,15 @@ class ArrayNoise:
     """Noise handed over as arrays, e.g. the ones the JAX pipeline drew:
     the initial noise, then one entry per sampler step (an array, or a
     sequence of arrays where a step makes several draws), and optionally
-    the encode and posterior noise and the hires and refiner passes' own
-    ArrayNoise. Asking for a draw that was not handed over raises."""
+    the encode, posterior and conditioning-augmentation noise and the hires
+    and refiner passes' own ArrayNoise. Asking for a draw that was not
+    handed over raises."""
 
     def __init__(self, initial: Optional[np.ndarray],
                  steps: Sequence = (), device="cpu", *,
                  encode: Optional[np.ndarray] = None,
                  posterior: Optional[np.ndarray] = None,
+                 cond_aug: Optional[np.ndarray] = None,
                  hires: Optional["ArrayNoise"] = None,
                  refiner: Optional["ArrayNoise"] = None):
         self.device = torch.device(device)
@@ -129,6 +139,7 @@ class ArrayNoise:
         self._steps = list(steps)
         self._encode = encode
         self._posterior = posterior
+        self._cond_aug = cond_aug
         self._passes = {"hires": hires, "refiner": refiner}
 
     def _take(self, arr, shape, what):
@@ -156,6 +167,9 @@ class ArrayNoise:
 
     def posterior(self, shape):
         return self._take(self._posterior, shape, "posterior")
+
+    def cond_aug(self, shape):
+        return self._take(self._cond_aug, shape, "cond_aug")
 
     def _pass(self, what):
         if self._passes[what] is None:

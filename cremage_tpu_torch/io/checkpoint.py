@@ -21,6 +21,16 @@
   model's). SDXL's OpenCLIP tower stores its attention input
   projection fused (`attn.in_proj_weight` / `in_proj_bias`, rows [q; k; v]);
   `openclip_text_subdict` splits it into the port's q/k/v projections.
+- SVD ships as one file (`split_svd`): the video UNet, the image VAE
+  under `first_stage_model.` and the OpenCLIP ViT-H image tower under
+  `conditioner.embedders.0.open_clip.model.visual.` (its fused attention
+  input projection split as SDXL's). Two families of its keys belong to
+  no model that the pipeline runs and are dropped by name: the temporal
+  layers of sgm's VideoDecoder (`first_stage_model.decoder.` keys with
+  `time_stack`, `time_mix` or `mix_factor` in their names: frames are
+  decoded with the image decoder, as in JAX), and every conditioner key
+  outside the visual tower (open_clip's text-side tables, the other
+  embedders' encoder).
 - FLUX ships as separate files: the BFL transformer (bare keys, or under
   `model.diffusion_model.`), HF's T5 encoder (`t5_encoder_state_dict`:
   `encoder.` stripped, the block-0 bias table lifted, the tied
@@ -60,6 +70,11 @@ PREFIX_OPENCLIP_SDXL = "conditioner.embedders.1.model."
 # the SDXL refiner's one text tower, bigG (sd_xl_refiner_1.0's layout)
 PREFIX_OPENCLIP_REFINER = "conditioner.embedders.0.model."
 PREFIX_CONTROLNET = "control_model."
+# SVD's OpenCLIP ViT-H image tower
+PREFIX_VISUAL_SVD = "conditioner.embedders.0.open_clip.model.visual."
+# the VideoDecoder's temporal layers (VideoResBlock time_stack and
+# mix_factor, AE3DConv time_mix_conv), which the image decoder lacks
+SVD_TEMPORAL_DECODER = ("time_stack", "time_mix", "mix_factor")
 # SDXL checkpoint keys of no model of the port besides the SD1.5 ones:
 # the sgm denoiser's sigma table (the port builds its own)
 SDXL_EXTRA_KEYS = frozenset(("denoiser.sigmas",))
@@ -282,6 +297,32 @@ def split_sdxl_refiner(sd: Mapping[str, torch.Tensor]
     return {PREFIX_UNET: component_state_dict(sd, PREFIX_UNET),
             PREFIX_OPENCLIP_REFINER: openclip_text_subdict(
                 sd, PREFIX_OPENCLIP_REFINER)}
+
+
+def svd_dropped(key: str) -> bool:
+    """Whether an SVD checkpoint key belongs to a family that the pipeline
+    never reads (the module docstring)."""
+    if key.startswith(PREFIX_VAE + "decoder."):
+        return any(tag in key for tag in SVD_TEMPORAL_DECODER)
+    return (key.startswith("conditioner.embedders.")
+            and not key.startswith(PREFIX_VISUAL_SVD))
+
+
+def split_svd(sd: Mapping[str, torch.Tensor]
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An SVD single-file state dict -> {prefix: component dict} of the
+    video UNet, the VAE and the ViT image tower (split q/k/v; empty when
+    the file has none). The dropped families (`svd_dropped`) go; any
+    other key that belongs to no component raises."""
+    keep = {k: v for k, v in sd.items() if not svd_dropped(k)}
+    unknown = [k for k in keep
+               if not k.startswith((PREFIX_UNET, PREFIX_VAE, PREFIX_VISUAL_SVD))]
+    if unknown:
+        raise KeyError(f"{len(unknown)} checkpoint keys belong to no SVD "
+                       f"component (first 10): {sorted(unknown)[:10]}")
+    return {PREFIX_UNET: component_state_dict(keep, PREFIX_UNET),
+            PREFIX_VAE: component_state_dict(keep, PREFIX_VAE),
+            PREFIX_VISUAL_SVD: openclip_text_subdict(keep, PREFIX_VISUAL_SVD)}
 
 
 def openclip_text_subdict(sd: Mapping[str, torch.Tensor],

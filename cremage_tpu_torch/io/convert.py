@@ -4,8 +4,9 @@ The JAX modules name their parameters after the torch checkpoint keys
 with dots flattened to underscores (cremage_tpu/io/checkpoint.py
 `normalize_key`). So each of the port module's own `state_dict()` keys,
 normalized the same way, names the flattened JAX path (joined with "_").
-Tensors are transposed HWIO -> OIHW for convolutions and (in, out) ->
-(out, in) for dense layers; embedding tables stay as they are. 8-bit
+Tensors are transposed HWIO -> OIHW for convolutions (DHWIO -> OIDHW for
+the video UNet's temporal ones) and (in, out) -> (out, in) for dense
+layers; embedding tables and the ViT's `proj` stay as they are. 8-bit
 leaves (io/quantize.py: float8 or int8 codes and a `weight_scale`
 sibling) carry over bit for bit into a module that `prepare_8bit` gave
 8-bit weights. Any missing or unused key raises.
@@ -28,6 +29,8 @@ _NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
                          "positional_embedding", "text_projection",
                          "concept_embeds", "special_care_embeds",
                          "relative_attention_bias", "shared")
+# rank-2 tensors used as x @ P, matched by their whole name
+_NO_TRANSPOSE_NAMES = ("proj",)
 
 
 def normalize_key(key: str) -> str:
@@ -67,9 +70,12 @@ def state_dict_from_jax(module: nn.Module, params: Mapping,
             missing.append(key)
             continue
         arr = flat[name]
-        if arr.ndim == 4:
+        if arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)         # DHWIO -> OIDHW
+        elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)            # HWIO -> OIHW
-        elif arr.ndim == 2 and not any(m in name for m in _NO_TRANSPOSE_MARKERS):
+        elif arr.ndim == 2 and name not in _NO_TRANSPOSE_NAMES and not any(
+                m in name for m in _NO_TRANSPOSE_MARKERS):
             arr = arr.T                                # (in, out) -> (out, in)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{key}: JAX shape {flat[name].shape} does not "

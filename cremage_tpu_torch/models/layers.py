@@ -133,11 +133,12 @@ def quick_gelu(x):
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Store every Conv2d/Linear weight and bias in `dtype` (the compute
-    dtype); norm parameters and embedding tables stay float32, and 8-bit
-    weights (io/quantize.py) and their scales as they are."""
+    """Store every Conv2d/Conv3d/Linear weight and bias in `dtype` (the
+    compute dtype); norm parameters, embedding tables and the video UNet's
+    blend factors stay float32, and 8-bit weights (io/quantize.py) and
+    their scales as they are."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear)):
+        if isinstance(m, (Conv2d, nn.Conv3d, Linear)):
             for p in m.parameters(recurse=False):
                 if not is_coded(p):
                     p.data = p.data.to(dtype)

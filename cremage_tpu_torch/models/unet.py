@@ -219,8 +219,11 @@ def spatial_transformer(cfg: UNetConfig, ch: int, depth: int):
                               cfg.use_linear_in_transformer)
 
 
-def encoder_blocks(cfg: UNetConfig, in_channels: int):
-    """The UNet's encoder half, shared with the ControlNet: (time_embed,
+def encoder_blocks(cfg: UNetConfig, in_channels: int, res_block=ResBlock,
+                   transformer=spatial_transformer):
+    """The UNet's encoder half, shared with the ControlNet and the video
+    UNet (models/video_unet.py, which passes its own `res_block(ch,
+    emb_ch, out_ch)` and `transformer(cfg, ch, depth)`): (time_embed,
     input_blocks, middle_block, the channels of each input block's output,
     the downsampling factor at the bottom)."""
     mc = cfg.model_channels
@@ -234,10 +237,10 @@ def encoder_blocks(cfg: UNetConfig, in_channels: int):
     n_levels = len(cfg.channel_mult)
     for level, mult in enumerate(cfg.channel_mult):
         for _ in range(cfg.num_res_blocks):
-            layers = [ResBlock(ch, ted, mc * mult)]
+            layers = [res_block(ch, ted, mc * mult)]
             ch = mc * mult
             if ds in cfg.attention_resolutions:
-                layers.append(spatial_transformer(cfg, ch, depths[level]))
+                layers.append(transformer(cfg, ch, depths[level]))
             input_blocks.append(nn.ModuleList(layers))
             chans.append(ch)
         if level != n_levels - 1:
@@ -245,10 +248,32 @@ def encoder_blocks(cfg: UNetConfig, in_channels: int):
             chans.append(ch)
             ds *= 2
     middle_block = nn.ModuleList([
-        ResBlock(ch, ted, ch),
-        spatial_transformer(cfg, ch, cfg.transformer_depth_middle),
-        ResBlock(ch, ted, ch)])
+        res_block(ch, ted, ch),
+        transformer(cfg, ch, cfg.transformer_depth_middle),
+        res_block(ch, ted, ch)])
     return time_embed, input_blocks, middle_block, chans, ds
+
+
+def decoder_blocks(cfg: UNetConfig, chans, ds: int, res_block=ResBlock,
+                   transformer=spatial_transformer):
+    """The UNet's decoder half over the encoder's skip channels `chans`
+    (consumed) from the downsampling factor `ds` at the bottom: (the
+    output blocks, the channels of the last)."""
+    mc = cfg.model_channels
+    ch = chans[-1]
+    output_blocks = nn.ModuleList()
+    for level in reversed(range(len(cfg.channel_mult))):
+        out_ch = mc * cfg.channel_mult[level]
+        for i in range(cfg.num_res_blocks + 1):
+            layers = [res_block(ch + chans.pop(), mc * 4, out_ch)]
+            ch = out_ch
+            if ds in cfg.attention_resolutions:
+                layers.append(transformer(cfg, ch, cfg.transformer_depth[level]))
+            if level > 0 and i == cfg.num_res_blocks:
+                layers.append(Upsample(ch))
+                ds //= 2
+            output_blocks.append(nn.ModuleList(layers))
+    return output_blocks, ch
 
 
 def run_layers(layers, h, emb, context):
@@ -271,29 +296,14 @@ class UNetModel(nn.Module):
     def __init__(self, cfg: UNetConfig):
         super().__init__()
         self.cfg = cfg
-        mc = cfg.model_channels
-        ted = mc * 4
-        depths = cfg.transformer_depth
-        n_levels = len(cfg.channel_mult)
+        ted = cfg.model_channels * 4
         (self.time_embed, self.input_blocks, self.middle_block, chans,
          ds) = encoder_blocks(cfg, cfg.in_channels)
         if cfg.adm_in_channels:
             self.label_emb = nn.Sequential(nn.Sequential(
                 Linear(cfg.adm_in_channels, ted), nn.Identity(),
                 Linear(ted, ted)))
-        ch = chans[-1]
-        self.output_blocks = nn.ModuleList()
-        for level in reversed(range(n_levels)):
-            out_ch = mc * cfg.channel_mult[level]
-            for i in range(cfg.num_res_blocks + 1):
-                layers = [ResBlock(ch + chans.pop(), ted, out_ch)]
-                ch = out_ch
-                if ds in cfg.attention_resolutions:
-                    layers.append(spatial_transformer(cfg, ch, depths[level]))
-                if level > 0 and i == cfg.num_res_blocks:
-                    layers.append(Upsample(ch))
-                    ds //= 2
-                self.output_blocks.append(nn.ModuleList(layers))
+        self.output_blocks, ch = decoder_blocks(cfg, chans, ds)
         self.out = nn.Sequential(GroupNorm(ch, 32, fuse_silu=True),
                                  nn.Identity(),
                                  Conv2d(ch, cfg.out_channels, 3, padding=1))

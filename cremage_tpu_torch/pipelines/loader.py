@@ -1,6 +1,6 @@
-"""Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle (the port of
-cremage_tpu/pipelines/loader.py `load_sd15_bundle`, `load_sdxl_bundle`
-and `load_flux_bundle`),
+"""Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle / SVDBundle
+(the port of cremage_tpu/pipelines/loader.py `load_sd15_bundle`,
+`load_sdxl_bundle`, `load_flux_bundle` and `load_svd_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
 ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
 into the base model only, as in JAX; the refiner takes none.
@@ -22,6 +22,7 @@ port does not have, so there is none here.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -35,6 +36,7 @@ from cremage_tpu_torch.io.quantize import (
     check_dtype, prepare_8bit, quantize_module, storage_report, unet_kind,
 )
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
+from cremage_tpu_torch.models.clip_vision import CLIPVisionModel, vit_h14_config
 from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
 from cremage_tpu_torch.models.flux import FluxModel, flux_dev_config, flux_schnell_config
 from cremage_tpu_torch.models.layers import set_compute_dtype
@@ -49,10 +51,12 @@ from cremage_tpu_torch.models.t5 import T5Encoder, t5_xxl_config
 from cremage_tpu_torch.models.vae import (
     AutoencoderKL, VAEConfig, flux_vae_config, sdxl_vae_config,
 )
+from cremage_tpu_torch.models.video_unet import VideoUNet, svd_unet_config
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.pipelines.flux import FluxBundle, FluxConditioner
 from cremage_tpu_torch.pipelines.sd15 import SD15Bundle
 from cremage_tpu_torch.pipelines.sdxl import SDXLBundle, SDXLConditioner
+from cremage_tpu_torch.pipelines.svd import SVDBundle
 from cremage_tpu_torch.prompt.tokenizer import default_tokenizer
 from cremage_tpu_torch.samplers import schedules as S
 
@@ -305,3 +309,35 @@ def load_flux_bundle(ckpt: str, vae_ckpt: str, clip_ckpt: Optional[str] = None,
                            t5_tokenize=t5_tokenize)
     return FluxBundle(model=model, conditioner=cond, vae=vae,
                       load_report=loads.report)
+
+
+def load_svd_bundle(ckpt: str, num_frames: int = 14,
+                    quantize_unet: Optional[str] = None, device=None,
+                    dtype: torch.dtype = torch.bfloat16) -> SVDBundle:
+    """An SVD bundle on `device` (CUDA unless named) in `dtype` from its
+    one file (io/checkpoint.py `split_svd`): the video UNet for
+    `num_frames` frames, the image VAE from `first_stage_model.` (the
+    file's temporal-decoder layers dropped, as JAX never reads them) and
+    the ViT-H image tower, None when the file has no visual keys (the
+    pipeline then conditions on zeros, as in JAX). `quantize_unet` and
+    `load_report` as in load_sd15_bundle: float8_e4m3 / float8_e5m2
+    storage of the video UNet's linear weights, int8 refused."""
+    quantize = unet_kind(quantize_unet)
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    parts = CK.split_svd(loads.read(ckpt))
+    unet = loads.fill(
+        _on_meta(functools.partial(VideoUNet, num_frames=num_frames),
+                 dataclasses.replace(svd_unet_config(), dtype=dtype), dtype,
+                 quantize),
+        parts.pop(CK.PREFIX_UNET), ckpt, "video UNet", quantize)
+    vae = loads.fill(_on_meta(AutoencoderKL, VAEConfig(dtype=dtype), dtype),
+                     parts.pop(CK.PREFIX_VAE), ckpt, "VAE")
+    visual = parts.pop(CK.PREFIX_VISUAL_SVD)
+    clip_vision = None
+    if visual:
+        clip_vision = loads.fill(
+            _on_meta(CLIPVisionModel, vit_h14_config(dtype=dtype), dtype),
+            visual, ckpt, "CLIP-H image tower")
+    return SVDBundle(unet=unet, vae=vae, clip_vision=clip_vision,
+                     load_report=loads.report)

@@ -12,6 +12,17 @@ the "nearest" and "lanczos3" methods of jax/_src/image/scale.py).
   float32 and cast to the input's dtype; the two axes are two matmuls.
   torch has no Lanczos; bicubic differs from it by 0.22 at 8 -> 16.
 
+`resize_area` is cv2.resize's INTER_AREA (what the JAX SVD pipeline
+runs on its CLIP image), as per-axis float32 weight matrices:
+- where neither axis grows, each output sample averages the input cells
+  it overlaps, each weighted by its overlap over the cell's width
+  (cv2's `computeResizeAreaTab`, overlaps in float64, weights rounded to
+  float32, fractions under 1e-3 dropped);
+- otherwise both axes take cv2's area-mode linear weights: input
+  floor(i * in / out) and the next, the second weighted by the fractional
+  part of (i + 1) - (floor(i * in / out) + 1) * out / in, or 0 where that
+  is not positive.
+
 Arrays are (B, H, W, C), the JAX layout; only H and W are resized.
 """
 from __future__ import annotations
@@ -75,5 +86,59 @@ def resize(x: torch.Tensor, size, method: str) -> torch.Tensor:
     if x.shape[2] != w:
         ww = torch.tensor(lanczos3_weights(x.shape[2], w), device=x.device,
                           dtype=x.dtype)
+        x = torch.einsum("bhwc,wW->bhWc", x, ww)
+    return x
+
+
+def area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 INTER_AREA weights of an axis that does not
+    grow (n_out <= n_in)."""
+    scale = 1.0 / (n_out / n_in)        # as cv2 rounds it
+    w = np.zeros((n_in, n_out), np.float32)
+    for j in range(n_out):
+        f1 = j * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, n_in - 1)
+        s1 = min(s1, s2)
+        if s1 - f1 > 1e-3:
+            w[s1 - 1, j] = np.float32((s1 - f1) / cell)
+        w[s1:s2, j] = np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            w[s2, j] = np.float32(min(min(f2 - s2, 1.0), cell) / cell)
+    return w
+
+
+def area_linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of cv2's INTER_AREA where an axis of
+    the call grows (its linear taps in area mode)."""
+    inv = n_out / n_in
+    scale = 1.0 / inv                   # as cv2 rounds it
+    w = np.zeros((n_in, n_out), np.float32)
+    for j in range(n_out):
+        s = int(np.floor(j * scale))
+        f = np.float32((j + 1) - (s + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else f - np.float32(np.floor(f))
+        if s >= n_in - 1:
+            s, f = n_in - 1, np.float32(0.0)
+        w[s, j] += np.float32(1.0) - f
+        if f:
+            w[s + 1, j] += f
+    return w
+
+
+def resize_area(x: torch.Tensor, size) -> torch.Tensor:
+    """cv2.resize(..., interpolation=INTER_AREA) of a float (B, H, W, C)
+    tensor to (B, size[0], size[1], C), in float32."""
+    h, w = int(size[0]), int(size[1])
+    x = x.float()
+    down = x.shape[1] >= h and x.shape[2] >= w
+    fn = area_weights if down else area_linear_weights
+    if x.shape[1] != h:
+        wh = torch.from_numpy(fn(x.shape[1], h)).to(x.device)
+        x = torch.einsum("bhwc,hH->bHwc", x, wh)
+    if x.shape[2] != w:
+        ww = torch.from_numpy(fn(x.shape[2], w)).to(x.device)
         x = torch.einsum("bhwc,wW->bhWc", x, ww)
     return x

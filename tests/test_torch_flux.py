@@ -79,7 +79,7 @@ from tests.conftest import assert_img01_close
 from tests.test_sentencepiece import WORDS, encode_model, t5_like_pieces
 from tests.test_torch_loader import LORA_WEIGHT, _lora
 from tests.test_torch_pipeline import (  # noqa: F401
-    CLIP_KW, UNET_KW, VAE_KW, jax_params, cheap_jax,
+    CLIP_KW, UNET_KW, VAE_KW, jax_params, cheap_jax, shared_template,
 )
 from tests.test_torch_sdxl import ADM, CTX
 from tests.test_torch_sdxl import UNET_KW as XL_UNET_KW
@@ -413,8 +413,13 @@ FLUX_OPTS = dict(prompt="the quick brown fox, masterpiece", H=64, W=64,
                  safety_check=False, watermark=False)
 
 
+_jax_template = JLOADER._template    # unpatched, whatever a test swaps in
+
+
 def _tiny_flux_configs(mp, vocab):
-    """Swap both loaders' published configs for the tiny ones."""
+    """Swap both loaders' published configs for the tiny ones (JAX's
+    templates memoized, as tests/test_torch_sdxl_loader.py does)."""
+    mp.setattr(JLOADER, "_template", shared_template(_jax_template))
     mp.setattr(JFLUXM, "flux_schnell_config",
                lambda **kw: JFluxConfig(guidance_embed=False, **FILE_FLUX, **kw))
     mp.setattr(JT5M, "t5_xxl_config",

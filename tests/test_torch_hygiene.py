@@ -14,8 +14,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     without a package the card's machine lacks (safetensors, yaml, cv2,
     PIL, transformers): counted beyond what a bare `import torch, numpy,
     scipy` loads. The checkpoint, LoRA, ControlNet and safety modules,
-    SDXL's, and FLUX's with 8-bit storage and the SentencePiece tokenizer,
-    are among those imported."""
+    SDXL's, FLUX's with 8-bit storage and the SentencePiece tokenizer, and
+    SVD's (its INTER_AREA resize among them, in place of cv2's), are among
+    those imported."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy, scipy, scipy.fft, torch
@@ -41,7 +42,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                     "services.watermark", "app.backends",
                     "models.open_clip", "samplers.edm", "pipelines.sdxl",
                     "io.quantize", "prompt.sentencepiece", "models.flux",
-                    "models.t5", "samplers.flow", "pipelines.flux"):
+                    "models.t5", "samplers.flow", "pipelines.flux",
+                    "models.clip_vision", "models.video_unet",
+                    "pipelines.svd", "utils.profile_svd"):
             assert "cremage_tpu_torch." + new in names, new
         print("clean")
     """)
@@ -55,10 +58,12 @@ def test_pipeline_without_device_raises_when_cuda_is_absent(monkeypatch):
     from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
 
     from cremage_tpu_torch.pipelines.sdxl import SDXLPipeline, build_sdxl_bundle
+    from cremage_tpu_torch.pipelines.svd import SVDPipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for entry in (lambda: SD15Pipeline(bundle=None), build_sd15_bundle,
-                  lambda: SDXLPipeline(bundle=None), build_sdxl_bundle):
+                  lambda: SDXLPipeline(bundle=None), build_sdxl_bundle,
+                  lambda: SVDPipeline(bundle=None)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             entry()
 

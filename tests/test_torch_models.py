@@ -249,11 +249,17 @@ def test_set_compute_dtype_keeps_norms_float32():
 def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     """The CUDA kernels refuse strided views, which the CPU plain versions
     would accept: check every K1/K2 call of the UNet, of the VAE's encoder
-    and decoder, and of FLUX's double and single blocks (the single
-    block's v is a slice of linear1's output) here."""
+    and decoder, of FLUX's double and single blocks (the single block's v
+    is a slice of linear1's output), and of SVD's video UNet at one and
+    two videos (a (3, 1, 1) convolution's output over one video is a
+    strided view once its frames are put back first) and ViT-H tower
+    here."""
+    from cremage_tpu_torch.models import clip_vision as CV
     from cremage_tpu_torch.models import flux as FX
+    from cremage_tpu_torch.models import open_clip as OC
     from cremage_tpu_torch.models import unet as U
     from cremage_tpu_torch.models import vae as V
+    from cremage_tpu_torch.models import video_unet as VU
     from cremage_tpu_torch.ops import attention as A
 
     calls = {"attn": 0, "gn": 0}
@@ -273,6 +279,7 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     monkeypatch.setattr(U, "attention", attn)
     monkeypatch.setattr(V, "attention", attn)
     monkeypatch.setattr(FX, "attention", attn)
+    monkeypatch.setattr(OC, "attention", attn)
     monkeypatch.setattr(L, "group_norm_silu", gn)
     unet = UNetModel(UNetConfig(**UNET_KW, dtype=torch.float32)).eval()
     vae = AutoencoderKL(VAEConfig(**VAE_KW, dtype=torch.float32)).eval()
@@ -297,3 +304,24 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
              torch.randn(1, 24), img_ids, txt_ids)
     assert calls["attn"] == count(flux, FX.DoubleBlock) + \
         count(flux, FX.SingleBlock) == 5
+
+    video = VU.VideoUNet(UNetConfig(
+        in_channels=8, out_channels=4, model_channels=32, num_res_blocks=1,
+        attention_resolutions=(1,), channel_mult=(1, 2), num_heads=-1,
+        num_head_channels=8, context_dim=16, adm_in_channels=768,
+        use_linear_in_transformer=True, dtype=torch.float32), 3).eval()
+    vit = CV.CLIPVisionModel(CV.CLIPVisionConfig(
+        image_size=28, width=32, num_layers=2, num_heads=4, output_dim=16,
+        dtype=torch.float32)).eval()
+    for videos in (1, 2):
+        calls.update(attn=0, gn=0)
+        n = 3 * videos
+        with torch.no_grad():
+            video(torch.randn(n, 8, 8, 8), torch.ones(n),
+                  torch.randn(n, 1, 16), torch.randn(n, 768))
+        assert calls["attn"] == count(video, U.CrossAttention) == 12
+        assert calls["gn"] == count(video, L.GroupNorm)
+    calls["attn"] = 0
+    with torch.no_grad():
+        vit(torch.rand(2, 28, 28, 3))
+    assert calls["attn"] == count(vit, OC._Attention) == 2

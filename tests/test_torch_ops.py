@@ -142,6 +142,13 @@ ALL_NQ_NK_D = MAIN_PATH_NQ_NK_D + HIRES_NQ_NK_D + SAFETY_NQ_NK_D
 # FLUX's joint attention at 1024^2 (4096 image + 256 T5 tokens, d = 128),
 # and dp = 128's 80-key tile with a ragged q block
 FLUX_NQ_NK_D = [(4352, 4352, 128), (100, 77, 128), (4352, 4100, 128)]
+# SVD at 576x1024: the video UNet's spatial self-attention over 72x128 ..
+# 9x16 tokens (5, 10, 20, 20 heads of 64, batch 28) and its spatial and
+# temporal cross-attention over the one image-embedding token, the VAE's
+# mid-block over 9216 tokens and ViT-H's 257 tokens at d = 80
+SVD_NQ_NK_D = [(9216, 9216, 64), (9216, 1, 64), (2304, 2304, 64),
+               (2304, 1, 64), (576, 576, 64), (576, 1, 64), (144, 144, 64),
+               (144, 1, 64), (9216, 9216, 512), (257, 257, 80)]
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -200,23 +207,28 @@ def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
 
 
 def test_plans_take_the_refiner_shapes():
-    """The SDXL refiner's K1 and K2 shapes, and FLUX's K1 shapes at
-    dp = 128 (2 warpgroups, q double-buffered beside a 2-stage ring),
-    through each plan test above (one test: under `--dist load` the number
-    of collected items sets the suite's wall time, ROADMAP.md)."""
+    """The SDXL refiner's K1 and K2 shapes, FLUX's K1 shapes at dp = 128
+    (2 warpgroups, q double-buffered beside a 2-stage ring) and SVD's K1
+    and K2 shapes (one key: a single 80-key tile), through each plan test
+    above (one test: under `--dist load` the number of collected items
+    sets the suite's wall time, ROADMAP.md)."""
     for nq, nk, d in FLUX_NQ_NK_D:
         plan = plan_flash(d, nq, nk)
         assert (plan.nwg, plan.bq, plan.q_bufs) == (2, 128, 2)
         # 32 KB q buffers and 32 KB K / V tiles: a third stage does not fit
         # beside 128-key tiles, it does beside 80-key ones
         assert (plan.bk, plan.stages) == ((80, 3) if nk <= 80 else (128, 2))
-    for nq, nk, d in REFINER_NQ_NK_D + FLUX_NQ_NK_D:
+    for nq, nk, d in SVD_NQ_NK_D:
+        if nk == 1:
+            assert (plan_flash(d, nq, nk).bk, plan_flash(d, nq, nk).stages) \
+                == (80, 3)
+    for nq, nk, d in REFINER_NQ_NK_D + FLUX_NQ_NK_D + SVD_NQ_NK_D:
         for check in (test_flash_plan_fits_shared_memory,
                       test_flash_plan_tma_boxes, test_flash_plan_key_tile,
                       test_flash_plan_output_split_covers_d_once,
                       test_flash_plan_is_an_instantiation_of_the_kernel):
             check(nq, nk, d)
-    for shape in REFINER_GN + [c[:4] for c in FLUX_VAE_GN]:
+    for shape in REFINER_GN + [c[:4] for c in FLUX_VAE_GN] + SVD_GN:
         for check in (test_groupnorm_plan_covers_slab_once,
                       test_groupnorm_plan_fits_a_cta,
                       test_groupnorm_new_path_route):
@@ -325,6 +337,11 @@ NEW_PATH_GN = [(1, 128, 512, 512), (1, 128, 256, 256), (1, 256, 256, 256),
 # the SDXL refiner's UNet at the CFG batch of 2 over a 1024^2 latent: 384
 # channels (12 a group) at 128^2, 1152 at 64^2, 2304 at 32^2
 REFINER_GN = [(2, 384, 128, 128), (2, 1152, 64, 64), (2, 2304, 32, 32)]
+# SVD's video UNet at its batch of 28 (2 x 14 frames) over 72x128 .. 9x16
+# latents, spatial and temporal GroupNorms alike, and its VAE at 576x1024
+SVD_GN = [(28, 320, 72, 128), (28, 640, 72, 128), (28, 640, 36, 64),
+          (28, 960, 36, 64), (28, 1280, 18, 32), (28, 2560, 9, 16),
+          (1, 128, 576, 1024), (1, 256, 576, 1024), (1, 512, 72, 128)]
 # the FLUX VAE decoder's 30 calls at 1024^2 (batch 1, z = 16): 7 (shape,
 # SiLU) pairs, the mid-block attention's norm the one without SiLU
 FLUX_VAE_GN = [(1, 512, 128, 128, True), (1, 512, 128, 128, False),
@@ -510,16 +527,19 @@ def cuda():
 # K1 on the card: the main path's head dims at ragged q and key counts, the
 # K/V ring (fewer tiles than stages, a ragged last tile, q rows not a
 # multiple of 128), the hires fix's longest loops (512 K/V tiles an item at
-# d = 512, 9216 tokens at d = 40) and the safety checker's d = 64 at its
+# d = 512, 9216 tokens at d = 40), the safety checker's d = 64 at its
 # batch of 4 and of 1 (ragged key tiles of 2 * 128 + 1, a second item of 65
-# q rows)
+# q rows), and SVD's calls over one key (one 80-key tile, 79 keys masked),
+# its batch-28 self-attention and ViT-H's d = 80
 FLASH_CUDA_CASES = [(1, 200, 4096, 2, 40), (2, 300, 77, 4, 40),
                     (2, 256, 256, 8, 80), (1, 64, 77, 8, 160),
                     (1, 256, 256, 1, 512), (2, 100, 64, 4, 80),
                     (2, 100, 130, 4, 80), (1, 300, 4096, 2, 40),
                     (8, 64, 64, 8, 160), (1, 1024, 1024, 1, 512),
                     (1, 16384, 16384, 1, 512), (2, 9216, 9216, 8, 40),
-                    (4, 257, 257, 16, 64), (1, 257, 257, 16, 64)]
+                    (4, 257, 257, 16, 64), (1, 257, 257, 16, 64),
+                    (28, 9216, 1, 5, 64), (28, 144, 1, 20, 64),
+                    (28, 2304, 2304, 10, 64), (1, 257, 257, 16, 80)]
 
 
 def _check_flash_kernel(cuda, b, nq, nk, h, d):
@@ -564,6 +584,9 @@ GN_CUDA_CASES = [
     # and the 1024^2 decoder's 16 MB slab
     (1, 512, 64, 64, 1e-6, True, 0.0, 2),
     (1, 256, 1024, 1024, 1e-6, True, 0.0, "two_pass"),
+    # SVD: the video UNet's batch-28 slabs of 184 KB and the VAE's 4.7 MB
+    (28, 320, 72, 128, 1e-5, True, 0.0, 2),
+    (1, 128, 576, 1024, 1e-6, True, 0.0, "two_pass"),
 ]
 
 

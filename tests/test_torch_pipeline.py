@@ -8,7 +8,12 @@ JAX pipeline draws from its threefry keys. Everything is float32 on the
 CPU.
 """
 import contextlib
+import json
+import os
+from collections.abc import Mapping
+from pathlib import Path
 
+import flax
 import flax.core.meta as flax_meta
 import flax.core.scope as flax_scope
 import jax
@@ -61,6 +66,64 @@ OPTS = dict(prompt="a (red:1.2) cat", negative_prompt="bad", H=64, W=64,
 
 
 _SHAPES = {}
+# The parameter shapes of the tiny JAX models the port's tests build, as
+# jax.eval_shape of each init gives them (a trace of 0.3-4 s per model in
+# each worker that builds it: about 60 s of a run's summed test time),
+# keyed like _SHAPES, under the jax and flax versions that traced them
+# (another version's records are ignored). A key missing here is traced
+# as before; CREMAGE_RECORD_JAX_SHAPES=1 appends its record (run the port's
+# tests in one process, `-p no:xdist`, to refresh the file).
+SHAPE_FILE = Path(__file__).resolve().parent / "fixtures" / "jax_param_shapes.jsonl"
+
+
+def _shape_key(module, args) -> str:
+    return repr((repr(module),
+                 tuple((tuple(a.shape), str(a.dtype)) for a in args)))
+
+
+def _to_json(tree):
+    if isinstance(tree, Mapping):
+        return {k: _to_json(v) for k, v in tree.items()}
+    return [list(tree.shape), str(tree.dtype)]
+
+
+def _from_json(tree):
+    if isinstance(tree, dict):
+        return {k: _from_json(v) for k, v in tree.items()}
+    return jax.ShapeDtypeStruct(tuple(tree[0]), jnp.dtype(tree[1]))
+
+
+def _recorded_shapes() -> dict:
+    versions = [jax.__version__, flax.__version__]
+    if not SHAPE_FILE.exists():
+        return {}
+    with open(SHAPE_FILE, encoding="utf-8") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return {r["key"]: r["tree"] for r in recs if r["versions"] == versions}
+
+
+_RECORDED = _recorded_shapes()
+
+
+def init_shapes(module, *args, trace=None):
+    """The shapes of `module.init(key, *args)` ({"params": ...} of
+    ShapeDtypeStructs): memoized in _SHAPES, else SHAPE_FILE's record,
+    else `trace()` (by default jax.eval_shape of the init)."""
+    key = (repr(module), tuple((a.shape, str(a.dtype)) for a in args))
+    if key in _SHAPES:
+        return _SHAPES[key]
+    skey = _shape_key(module, args)
+    if skey in _RECORDED:
+        _SHAPES[key] = _from_json(_RECORDED[skey])
+        return _SHAPES[key]
+    _SHAPES[key] = dict(trace() if trace else jax.eval_shape(
+        module.init, jax.random.key(0), *args))
+    if os.environ.get("CREMAGE_RECORD_JAX_SHAPES") == "1":
+        with open(SHAPE_FILE, "a", encoding="utf-8") as f:
+            f.write(json.dumps({"key": skey, "versions": [
+                jax.__version__, flax.__version__],
+                "tree": _to_json(_SHAPES[key])}) + "\n")
+    return _SHAPES[key]
 
 
 def _param_unchecked(self, name, init_fn, *init_args, unbox=True,
@@ -117,10 +180,8 @@ def shared_template(template):
     a tiny model's init takes 1-3 s, and the port's test modules load the
     same tiny configs."""
     def memo(model, *args):
-        key = (repr(model), tuple((a.shape, str(a.dtype)) for a in args))
-        if key not in _SHAPES:
-            _SHAPES[key] = {"params": template(model, *args)}
-        return _SHAPES[key]["params"]
+        return init_shapes(model, *args, trace=lambda: {
+            "params": template(model, *args)})["params"]
     return memo
 
 
@@ -134,9 +195,7 @@ def jax_params(module, seed, *args):
     The shapes are memoized per module config and input shapes: a trace of
     a model's init takes a second or more, and the port's test modules
     share their tiny configs."""
-    key = (repr(module), tuple((a.shape, str(a.dtype)) for a in args))
-    if key not in _SHAPES:
-        _SHAPES[key] = jax.eval_shape(module.init, jax.random.key(0), *args)
+    shapes = init_shapes(module, *args)
     rng = np.random.RandomState(seed)
 
     def lecun_normal(shape):
@@ -158,7 +217,7 @@ def jax_params(module, seed, *args):
             base = 0.02 * rng.randn(*shape)
         return (base + 0.1 * rng.randn(*shape)).astype(np.float32)
 
-    return jax.tree_util.tree_map_with_path(leaf, _SHAPES[key])
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
 @pytest.fixture(scope="module")
