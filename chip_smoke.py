@@ -146,18 +146,49 @@ is nonzero and no final line is printed:
    the recorded shapes' sum; the full-width video UNet over one CFG half
    (14 frames) in bf16 against fp32 through the plain versions, on the
    card;
-15. new paths' shapes: hooks record the shape of every K1 and K2 call of
+15. sd3: SD3-medium at its published settings (1024^2, 28 flow-Euler
+   steps over the shift-3 sigmas, CFG 7.0 over [uc; c], batch 1), from
+   one seeded random fp16 file at full width and depth under build/sd3/
+   (5.9 GB, sd3_medium_incl_clips' layout: the MMDiT (24 joint blocks,
+   hidden 1536, 24 heads of 64), the 16-channel VAE without quant convs,
+   CLIP-L and bigG in HF's layout, CLIP-L's projection, which the loader
+   drops). The --config server (sd3_ldm_model_path / sd3_ldm_model)
+   serves with generator_model_type "SD 3": a 2-step warm-up (the load),
+   the job twice (timed), once more with the shape hooks, then with
+   dit_quantize "float8_e4m3" and "int8" a warm-up (a new load) and one
+   timed request each. The file has no T5, so the T5 context is zeros,
+   as the served JAX request's. Checks: every weight equals its file's,
+   or its 8-bit codes and scale io/quantize.py's of the file's tensor
+   (int8: the patch embedding's too, whose GEMM on the card matches its
+   CPU branch on the same codes); deep_cache is refused; images finite,
+   non-constant, 1024^2; the K1 / K2 launches equal the module tree's
+   count (one joint attention over [154; 4096] tokens per block a step,
+   the decoder's attention and GroupNorms) and the recorded shapes' sum;
+   the first and the last joint block in bf16 (K1) against fp32 (the
+   plain versions), on the card;
+16. pixart: PixArt-Σ XL at diffusers' PixArtSigmaPipeline defaults
+   (1024^2, 20 steps of "DPM++ 2M", CFG 4.5, batch 1), from seeded random
+   fp16 files under build/pixart/: the transformer in diffusers' layout
+   (28 blocks, hidden 1152, 16 heads of 72) and the SD VAE as a
+   standalone file. The --config server (pixart_sigma_ldm_model_path /
+   pixart_sigma_ldm_model, the job's vae_ckpt) serves with
+   generator_model_type "PixArt-Sigma" as sd3 does, with dit_quantize
+   "float8_e4m3" after the bf16 requests. The caption is zeros of (120,
+   4096), as in JAX (no T5). The same checks, with two K1 calls per block
+   a step (self-attention, cross-attention over the 120 caption tokens);
+17. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
-   sd15_full, of sdxl's and sdxl_modes' requests, of flux's and of svd's
-   (the recorded calls
+   sd15_full, of sdxl's and sdxl_modes' requests, of flux's, svd's, sd3's
+   and pixart's (the recorded calls
    must add up to the launch counts), and the same checks as 4 and 5 run
    at every shape the main path's rows do not hold (the safety checker's
    d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
    refiner's at 12 and 24 among them, FLUX's d = 128, SVD's batch-28
-   calls over 9216 tokens and over one key), and at K2's H*W % 8 != 0 cases
+   calls over 9216 tokens and over one key, SD3's 4250 keys, PixArt's
+   d = 72), and at K2's H*W % 8 != 0 cases
    (K2_ANY_HW); each row lists the paths that run its shape with their
    calls per request;
-16. the kernels line (per-request totals over the main path's shapes, as
+18. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path), then the contract's last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
@@ -194,7 +225,8 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 # phase: its model evals are K1's first launches.
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=300, sd15_full=480,
-                sdxl=600, sdxl_modes=720, flux=900, svd=600, new_shapes=600)
+                sdxl=600, sdxl_modes=720, flux=900, svd=600, sd3=420,
+                pixart=300, new_shapes=600)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -321,14 +353,17 @@ def ptxas_summary(log: str) -> dict:
 @contextlib.contextmanager
 def recording(*models):
     """While open, count the K1 and K2 calls of the models (bundles: their
-    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX bundle's
-    transformer and VAE; or modules, such as the safety checker)
+    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX, SD3 or
+    PixArt bundle's transformer and VAE; or modules, such as the safety
+    checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.clip import CLIPAttention
     from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
     from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.mmdit import JointBlock
     from cremage_tpu_torch.models.open_clip import _Attention
+    from cremage_tpu_torch.models.pixart import PixArtBlock
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
 
@@ -361,13 +396,29 @@ def recording(*models):
                                          else 1])
         add(attn, (args[0].shape[0], n, n, mod.cfg.num_heads, mod.cfg.head_dim))
 
+    def on_joint(mod, args):       # SD3: one K1 call over [ctx; x]
+        ctx, x = args[:2]
+        n = ctx.shape[1] + x.shape[1]
+        cfg = mod.cfg
+        add(attn, (x.shape[0], n, n, cfg.num_heads,
+                   cfg.hidden_size // cfg.num_heads))
+
+    def on_pixart(mod, args):      # PixArt: self- and cross-attention
+        x, y = args[:2]
+        b, n = x.shape[:2]
+        cfg = mod.cfg
+        h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        add(attn, (b, n, n, h, d))
+        add(attn, (b, n, y.shape[1], h, d))
+
     hooks = []
     for model in models:
         if hasattr(model, "unet"):
             parts = [model.unet, model.vae, getattr(model, "controlnet", None),
                      getattr(model, "clip_vision", None)]
-        elif hasattr(model, "vae"):        # a FLUX bundle
-            parts = [model.model, model.vae]
+        elif hasattr(model, "vae"):        # a FLUX, SD3 or PixArt bundle
+            parts = [getattr(model, a, None) for a in ("model", "mmdit", "dit")
+                     ] + [model.vae]
         else:
             parts = [model]
         for m in (m for part in parts if part is not None
@@ -382,6 +433,10 @@ def recording(*models):
                 hooks.append(m.register_forward_pre_hook(on_clip))
             elif isinstance(m, (DoubleBlock, SingleBlock)):
                 hooks.append(m.register_forward_pre_hook(on_flux))
+            elif isinstance(m, JointBlock):
+                hooks.append(m.register_forward_pre_hook(on_joint))
+            elif isinstance(m, PixArtBlock):
+                hooks.append(m.register_forward_pre_hook(on_pixart))
     try:
         yield attn, gn, weight
     finally:
@@ -2789,6 +2844,429 @@ def svd(dev, card, root: Path, res=SVD_RES, frames=SVD_FRAMES,
     return rows, shapes, launches
 
 
+SD3_RES, SD3_STEPS, SD3_REQUESTS, SD3_CFG = 1024, 28, 2, 7.0   # SD3-medium's
+DIT_WARMUP_STEPS = 2        # published settings; a load's first request
+SD3_FILE_GB = 14            # free disk the 5.9 GB file needs, with room
+PIXART_RES, PIXART_STEPS, PIXART_REQUESTS, PIXART_CFG = 1024, 20, 2, 4.5
+PIXART_SAMPLER = "DPM++ 2M"  # diffusers' PixArtSigmaPipeline defaults
+PIXART_FILES_GB = 4
+DIT_PROMPT = "a photograph of an astronaut riding a horse on the moon"
+
+
+def sd3_configs():
+    """SD3-medium's published widths and depths: the MMDiT, CLIP-L, bigG
+    and the 16-channel VAE, in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.clip import CLIPTextConfig
+    from cremage_tpu_torch.models.mmdit import sd3_medium_config
+    from cremage_tpu_torch.models.open_clip import openclip_bigg_config
+    from cremage_tpu_torch.models.vae import sd3_vae_config
+
+    bf16 = torch.bfloat16
+    return dict(mmdit=sd3_medium_config(dtype=bf16),
+                clip=CLIPTextConfig(dtype=bf16),
+                bigg=openclip_bigg_config(dtype=bf16),
+                vae=sd3_vae_config(dtype=bf16))
+
+
+def meta_shapes(cls, cfg) -> dict:
+    """{key: shape} of `cls(cfg)`'s state dict, built on the meta device."""
+    import torch
+
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in cls(cfg).state_dict().items()}
+
+
+def hf_openclip_key(key: str) -> str:
+    """A key of the port's OpenCLIP tower as HF's CLIPTextModelWithProjection
+    names it (under `text_model.`, the projection beside it), the inverse of
+    io/checkpoint.py `hf_text_to_openclip`."""
+    from cremage_tpu_torch.io import checkpoint as CK
+
+    if key == "text_projection":
+        return "text_projection.weight"
+    if key == "token_embedding.weight":
+        return "text_model.embeddings.token_embedding.weight"
+    if key == "positional_embedding":
+        return "text_model.embeddings.position_embedding.weight"
+    if key.startswith("ln_final."):
+        return "text_model.final_layer_norm." + key[len("ln_final."):]
+    i, sub = key[len("transformer.resblocks."):].split(".", 1)
+    for hf, ours in CK.HF_OPENCLIP_LAYER:
+        sub = sub.replace(ours, hf)
+    return f"text_model.encoder.layers.{i}.{sub}"
+
+
+def write_sd3_file(root: Path, dev, cfgs: dict):
+    """SD3-medium as published (sd3_medium_incl_clips: no T5), one file of
+    seeded random fp16 tensors under `root`: the MMDiT under
+    model.diffusion_model., the VAE (no quant convs) under
+    first_stage_model., CLIP-L and bigG in HF's CLIPTextModelWithProjection
+    layout under text_encoders.clip_{l,g}.transformer. (CLIP-L's
+    projection, which the loader drops, included), and a config.yaml
+    naming it. Refuses to start without SD3_FILE_GB of free disk. ->
+    (paths, seconds)."""
+    import torch
+
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.models.clip import CLIPTextModel
+    from cremage_tpu_torch.models.mmdit import MMDiT
+    from cremage_tpu_torch.models.open_clip import OpenCLIPTextModel
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < SD3_FILE_GB:
+        raise RuntimeError(f"sd3: {free:.1f} GB free under {root}, the file "
+                           f"needs {SD3_FILE_GB} GB")
+    shapes = {CK.PREFIX_UNET + k: v
+              for k, v in meta_shapes(MMDiT, cfgs["mmdit"]).items()}
+    shapes.update({CK.PREFIX_VAE + k: v
+                   for k, v in meta_shapes(AutoencoderKL, cfgs["vae"]).items()})
+    shapes.update({CK.PREFIX_SD3_CLIP_L + k: v for k, v in meta_shapes(
+        CLIPTextModel, cfgs["clip"]).items()})
+    shapes.update({"text_encoders.clip_g.transformer." + hf_openclip_key(k): v
+                   for k, v in meta_shapes(OpenCLIPTextModel,
+                                           cfgs["bigg"]).items()})
+    for name in CK.SD3_DROPPED:
+        shapes[name] = (cfgs["clip"].hidden_size,) * 2
+    ids = torch.arange(77)[None]
+    paths = {"ckpt": root / "sd3_medium_incl_clips.safetensors",
+             "config": root / "config.yaml"}
+    seconds = write_seeded_safetensors(
+        paths["ckpt"], shapes, dev, 70, dtype="F16", extra={
+            CK.PREFIX_SD3_CLIP_L + CK.POSITION_IDS: ids,
+            CK.PREFIX_SD3_CLIP_G + CK.POSITION_IDS: ids})
+    paths["config"].write_text(f"sd3_ldm_model_path: '{root}'\n"
+                               f"sd3_ldm_model: '{paths['ckpt'].name}'\n")
+    return {k: str(v) for k, v in paths.items()}, seconds
+
+
+def diffusers_pixart_key(key: str):
+    """The diffusers PixArtTransformer2DModel keys a key of the port's PixArt
+    comes from, with the rows each holds (a fused qkv / kv weight or bias
+    splits into to_q, to_k, to_v): the inverse of io/diffusers_keys.py
+    `pixart_from_diffusers`. -> [(diffusers key, part, parts)]."""
+    from cremage_tpu_torch.io import diffusers_keys as DK
+
+    if key == "final_layer.scale_shift_table":
+        return [("scale_shift_table", 0, 1)]
+    if key.startswith("blocks."):
+        i, rest = key[len("blocks."):].split(".", 1)
+        base, kind = f"transformer_blocks.{i}.", rest.rsplit(".", 1)[-1]
+        if rest.startswith("attn.qkv."):
+            return [(f"{base}attn1.to_{c}.{kind}", j, 3)
+                    for j, c in enumerate("qkv")]
+        if rest.startswith("cross_attn.kv_linear."):
+            return [(f"{base}attn2.to_{c}.{kind}", j, 2)
+                    for j, c in enumerate("kv")]
+        if rest == "scale_shift_table":
+            return [(base + rest, 0, 1)]
+        theirs, ours = next(p for p in DK._BLOCK if rest.startswith(p[1]))
+        return [(base + theirs + rest[len(ours):], 0, 1)]
+    theirs, ours = next(p for p in DK._TOP if key.startswith(p[1]))
+    return [(theirs + key[len(ours):], 0, 1)]
+
+
+def write_pixart_files(root: Path, dev):
+    """PixArt-Σ XL as published, from seeded random fp16 tensors under
+    `root`: the transformer in diffusers' layout
+    (transformer/diffusion_pytorch_model.safetensors) and the SD VAE as a
+    standalone file in the CompVis layout, and a config.yaml naming the
+    transformer. -> (paths, {file: seconds})."""
+    from cremage_tpu_torch.models.pixart import PixArt, pixart_sigma_xl_config
+    from cremage_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < PIXART_FILES_GB:
+        raise RuntimeError(f"pixart: {free:.1f} GB free under {root}, the "
+                           f"files need {PIXART_FILES_GB} GB")
+    shapes = {}
+    for k, shape in meta_shapes(PixArt, pixart_sigma_xl_config()).items():
+        for name, _, parts in diffusers_pixart_key(k):
+            shapes[name] = (shape[0] // parts,) + shape[1:]
+    paths = {"ckpt": root / "diffusion_pytorch_model.safetensors",
+             "vae": root / "sdxl_vae.safetensors", "config": root / "config.yaml"}
+    seconds = {
+        "ckpt": write_seeded_safetensors(paths["ckpt"], shapes, dev, 80,
+                                         dtype="F16"),
+        "vae": write_seeded_safetensors(
+            paths["vae"], meta_shapes(AutoencoderKL, VAEConfig()), dev, 81,
+            dtype="F16")}
+    paths["config"].write_text(
+        f"pixart_sigma_ldm_model_path: '{root}'\n"
+        f"pixart_sigma_ldm_model: '{paths['ckpt'].name}'\n")
+    return {k: str(v) for k, v in paths.items()}, seconds
+
+
+def check_dit_weights(phase, bundle, paths, quantize):
+    """check_coded over an SD3 or PixArt bundle's models and their files."""
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.io.diffusers_keys import pixart_from_diffusers
+
+    if phase == "sd3":
+        parts = CK.split_sd3(CK.load_safetensors(paths["ckpt"]))
+        cond = bundle.conditioner
+        groups = {"mmdit": (bundle.mmdit, parts[CK.PREFIX_UNET]),
+                  "vae": (bundle.vae, parts[CK.PREFIX_VAE]),
+                  "clip_l": (cond.clip_l, parts[CK.PREFIX_SD3_CLIP_L]),
+                  "clip_g": (cond.open_clip, parts[CK.PREFIX_SD3_CLIP_G])}
+    else:
+        groups = {"dit": (bundle.dit, pixart_from_diffusers(
+            CK.load_safetensors(paths["ckpt"]))),
+                  "vae": (bundle.vae, CK.component_state_dict(
+                      CK.vae_state_dict_from_standalone(
+                          CK.load_safetensors(paths["vae"])), CK.PREFIX_VAE))}
+    return check_coded(f"{phase}_weights", quantize, groups)
+
+
+def dit_kernel_calls(bundle, steps: int):
+    """(K1, K2) launches of an SD3 or PixArt request from the module tree:
+    each of the `steps` evaluations (the [uc; c] batch in one call) runs
+    one K1 call per joint block (SD3) or two per block (PixArt's self- and
+    cross-attention), and the one decode the VAE decoder's attention and
+    GroupNorms (the text towers' causal attention takes the plain path)."""
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.mmdit import JointBlock
+    from cremage_tpu_torch.models.pixart import PixArtBlock
+    from cremage_tpu_torch.models.vae import AttnBlock
+
+    dit = getattr(bundle, "mmdit", None) or bundle.dit
+    per_eval = count(dit, JointBlock) + 2 * count(dit, PixArtBlock)
+    return (steps * per_eval + count(bundle.vae.decoder, AttnBlock),
+            count(bundle.vae.decoder, GroupNorm))
+
+
+def check_dit_blocks(phase, dit, dev):
+    """The first and the last block of a full-width DiT in bf16 through K1
+    against the same weights in float32 through the plain versions, on
+    the card, at the 1024^2 request's token counts: SD3's joint blocks
+    (the last one's context stream pre-only) over [154; 4096] tokens,
+    PixArt's blocks over 4096 tokens and 120 caption tokens."""
+    import copy
+
+    import torch
+
+    from cremage_tpu_torch.models.mmdit import JointBlock
+
+    h = dit.cfg.hidden_size
+    blocks = getattr(dit, "blocks", None) or dit.joint_blocks
+    g = torch.Generator(device=dev).manual_seed(71)
+    rows = []
+    for name, blk in (("first", blocks[0]), ("last", blocks[-1])):
+        x = torch.randn(1, 4096, h, device=dev, generator=g)
+        if isinstance(blk, JointBlock):
+            args = (torch.randn(1, 154, h, device=dev, generator=g), x,
+                    torch.randn(1, h, device=dev, generator=g))
+        else:
+            args = (x, torch.randn(1, 120, h, device=dev, generator=g),
+                    0.1 * torch.randn(1, 6, h, device=dev, generator=g))
+        ref = copy.deepcopy(blk).float()
+        with torch.no_grad():
+            got = blk(*[a if a.shape[1:] == (6, h) else a.bfloat16()
+                        for a in args])
+            with plain_kernels():
+                want = ref(*args)
+        got = [t for t in (got if isinstance(got, tuple) else (got,))
+               if t is not None]
+        want = [t for t in (want if isinstance(want, tuple) else (want,))
+                if t is not None]
+        rel = max(float((a.float() - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, want))
+        rows.append(dict(block=name, max_rel_err=rel))
+        del ref
+    # as flux_blocks_bf16_vs_fp32: bf16 rounds each of the block's products
+    # and residual adds to 2^-9 relative, and the errors add along it
+    tol = 5e-2
+    row = dict(phase=f"{phase}_blocks_bf16_vs_fp32", rows=rows, tol=tol)
+    emit(row)
+    if not all(r["max_rel_err"] <= tol for r in rows):
+        raise AssertionError(f"{phase} blocks bf16 vs fp32: {rows}")
+    return row
+
+
+def check_patch_gemm(mmdit, dev):
+    """The int8 patch embedding on the card (`_int_mm` over the 2x2
+    patches) against its CPU branch on the same codes, at the 1024^2
+    request's batch of 2 latents: 2^-6 of the largest output, as the
+    int8 Linear's check in tests/test_torch_ops.py."""
+    import copy
+
+    import torch
+
+    conv = mmdit.x_embedder.proj
+    g = torch.Generator(device=dev).manual_seed(72)
+    x = torch.randn(2, 16, SD3_RES // 8, SD3_RES // 8, device=dev,
+                    generator=g).bfloat16()
+    with torch.no_grad():
+        got = conv(x).float().cpu()
+        want = copy.deepcopy(conv).cpu()(x.cpu()).float()
+    err = float((got - want).abs().max())
+    tol = 2.0 ** -6 * float(want.abs().max())
+    row = dict(phase="sd3_int8_patch_gemm", weight=str(conv.weight.dtype),
+               shape=list(x.shape), max_abs_err=err, tol=tol)
+    emit(row)
+    if conv.weight.dtype != torch.int8 or not err <= tol:
+        raise AssertionError(f"sd3 int8 patch GEMM: {row}")
+    return row
+
+
+def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
+              check_model=True):
+    """The phase sd3 or pixart: the family's files (write_sd3_file,
+    write_pixart_files) under `root`, its job (SD3-medium's published
+    settings, or diffusers' PixArtSigmaPipeline defaults) through the
+    --config server's /v1/generate: a warm-up of DIT_WARMUP_STEPS steps
+    that loads, `requests` timed requests, one more with the shape hooks;
+    then for each kind of `quantized` (dit_quantize) a warm-up that loads
+    anew and one timed request. -> (rows, {path: (K1 shapes, K2 shapes)},
+    launches of the timed requests)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    if phase == "sd3":
+        model_type = "SD 3"
+        paths, seconds = write_sd3_file(root, dev, sd3_configs())
+        job = {"scale": SD3_CFG}
+    else:
+        model_type = "PixArt-Sigma"
+        paths, seconds = write_pixart_files(root, dev)
+        job = {"scale": PIXART_CFG, "sampler": PIXART_SAMPLER,
+               "vae_ckpt": paths["vae"]}
+    rows = [dict(phase=f"{phase}_files", seconds=seconds,
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()})]
+    emit(rows[0])
+    job.update(prompt=DIT_PROMPT, negative_prompt=NEGATIVE, H=res, W=res,
+               sampling_steps=steps, n_samples=1, n_iter=1,
+               safety_check=False, watermark=False)
+    srv = build_server(["--config", paths["config"], "--port", "0"])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    finite, runs, shapes, loads = [], {}, {}, {}
+
+    def resident():
+        return srv.worker._backends[model_type].resident.instance.bundle
+
+    def run(params, record=False):
+        """-> (seconds, (K1, K2), images, finite decodes, shapes)."""
+        finite.clear()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            rec = (stack.enter_context(recording(resident()))
+                   if record else None)
+            t1 = time.perf_counter()
+            client.generate("text_to_image", params, model_type)
+            out = served_images(client.drain(1))
+            wall = time.perf_counter() - t1
+        return wall, read_counts(), out, list(finite), rec and rec[:2]
+
+    def load_row(kind, first):
+        bundle = resident()
+        loads[kind] = dict(
+            first_run_seconds=first[0],
+            resident_bytes=torch.cuda.memory_allocated(),
+            quantize=bundle.load_report.get("quantize"),
+            files={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"], 1e-9)
+                           / 1e9)
+                   for k, v in bundle.load_report["files"].items()})
+        rows.append(check_dit_weights(phase, bundle, paths, kind))
+        emit(rows[-1])
+        return bundle
+
+    name = f"{phase} {res}^2"
+    try:
+        refused = expect_refused(client, dict(job, deep_cache=3),
+                                 "an unported option", model_type)
+        bundle = load_row("none", run(dict(job, sampling_steps=DIT_WARMUP_STEPS,
+                                           seed=1)))
+        hook = bundle.vae.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        finite.clear()
+        reset_counts()
+        t1 = time.perf_counter()
+        for r in range(requests):
+            client.generate("text_to_image", dict(job, seed=10 + r), model_type)
+        served = served_images(client.drain(requests))
+        wall = time.perf_counter() - t1
+        launches, decodes = read_counts(), list(finite)
+        runs[name] = run(dict(job, seed=12), record=True)
+        hook.remove()
+        shapes[name] = runs[name][4]
+        want = [requests * k for k in dit_kernel_calls(bundle, steps)]
+        if check_model:
+            rows.append(check_dit_blocks(
+                phase, getattr(bundle, "mmdit", None) or bundle.dit, dev))
+        del bundle
+        for kind in quantized:
+            params = dict(job, dit_quantize=kind, seed=13)
+            bundle = load_row(kind, run(dict(params,
+                                             sampling_steps=DIT_WARMUP_STEPS)))
+            if kind == "int8":
+                rows.append(check_patch_gemm(bundle.mmdit, dev))
+            del bundle
+            runs[f"{phase} {kind}"] = run(params)
+    finally:
+        srv.stop()
+    held = srv.worker._backends[model_type].resident
+    held.key = held.instance = None         # free the served bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    stds = [float(np.std(p.astype(np.float32))) for p, _ in served]
+    row = dict(phase=phase, card=card, steps=steps, res=res, batch=1,
+               requests=requests, seconds=wall,
+               seconds_per_request=wall / requests,
+               images_per_s=len(served) / wall, loads=loads,
+               images=[list(p.shape) for p, _ in served], pixel_std=stds,
+               decodes_finite=decodes, refused=refused,
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    if len(served) != requests or any(p.shape != (res, res, 3)
+                                      for p, _ in served) \
+            or decodes != [True] * requests or min(stds) <= 0.0:
+        raise AssertionError(f"{phase}: images {row['images']}, finite "
+                             f"decodes {decodes}, pixel std {stds}")
+    if "NotImplementedError" not in (refused or ""):
+        raise AssertionError(f"{phase}: deep_cache not refused: {refused}")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"{phase}: kernel launches {launches} != derived "
+                             f"{want}")
+    rows.append(row)
+    for rname, (sec, (k1, k2), imgs, fin, rec) in runs.items():
+        r = dict(phase=f"{phase}_request", request=rname, card=card,
+                 seconds=sec, images=[list(p.shape) for p, _ in imgs],
+                 pixel_std=[float(np.std(p.astype(np.float32)))
+                            for p, _ in imgs],
+                 decodes_finite=fin, flash_attention_launches=k1,
+                 group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0] // requests,
+                 expected_group_norm_silu=want[1] // requests)
+        if rec is not None:
+            r["recorded_calls"] = [sum(rec[0].values()), sum(rec[1].values())]
+        emit(r)
+        if len(imgs) != 1 or imgs[0][0].shape != (res, res, 3) \
+                or min(r["pixel_std"]) <= 0.0 or (fin and fin != [True]):
+            raise AssertionError(f"{rname}: {r}")
+        if (k1, k2) != (r["expected_flash_attention"],
+                        r["expected_group_norm_silu"]) or (
+                rec is not None and tuple(r["recorded_calls"]) != (k1, k2)):
+            raise AssertionError(f"{rname}: kernel launches {(k1, k2)}, "
+                                 f"derived {want}, recorded "
+                                 f"{r.get('recorded_calls')}")
+        rows.append(r)
+    return rows, shapes, launches
+
+
 def full_configs():
     """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
     UNet's encoder on 4 latent channels) and the CompVis safety checker,
@@ -2934,6 +3412,20 @@ def main() -> int:
     finally:
         shutil.rmtree(svd_root, ignore_errors=True)
     paths.update(svd_paths)
+    dit_launches = {}
+    for phase, res, steps, requests, quantized in (
+            ("sd3", SD3_RES, SD3_STEPS, SD3_REQUESTS, ("float8_e4m3", "int8")),
+            ("pixart", PIXART_RES, PIXART_STEPS, PIXART_REQUESTS,
+             ("float8_e4m3",))):
+        torch.cuda.empty_cache()
+        watchdog(phase)
+        dit_root = REPO / "build" / phase
+        try:
+            _, dit_paths, dit_launches[phase] = dit_phase(
+                phase, dev, card, dit_root, res, steps, requests, quantized)
+        finally:
+            shutil.rmtree(dit_root, ignore_errors=True)
+        paths.update(dit_paths)
     paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
     torch.cuda.empty_cache()
     watchdog("new_shapes")
@@ -2953,7 +3445,9 @@ def main() -> int:
                 "sdxl": sdxl_launches[key.startswith("group")],
                 "sdxl_modes": xl_mode_launches[key.startswith("group")],
                 "flux": flux_launches[key.startswith("group")],
-                "svd": svd_launches[key.startswith("group")]}
+                "svd": svd_launches[key.startswith("group")],
+                **{p: n[key.startswith("group")]
+                   for p, n in dit_launches.items()}}
 
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",

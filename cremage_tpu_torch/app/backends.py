@@ -34,8 +34,16 @@ JAX's parameters (`init_img`; `ckpt`, or `svd_model` under
 svd_model_path; num_frames, sampling_steps, fps_id, motion_bucket_id,
 cond_aug, seed, unet_quantize), JAX's resident key and errors, one result
 per frame with {"frame": i, **the job's scalar parameters}. FILM
-interpolation and the mp4 writer (`interpolation_frames`, `make_mp4`,
-`output_mp4`) are not ported: they raise.
+interpolation is not ported: a non-zero `interpolation_frames` raises.
+`make_mp4` and `output_mp4` act only after FILM passes in JAX, so with
+none they are ignored and the frames served, as there.
+
+`sd3_factory(prefs)` ("SD 3") and `pixart_factory(prefs)` ("PixArt-Sigma")
+load their bundle from `opts.ckpt` or the preferences' sd3_ldm_model /
+pixart_sigma_ldm_model with JAX's parameters: SD3's `include_t5` (default
+True), `sd3_quantize_t5` and `dit_quantize`, PixArt's `vae_ckpt` and
+`dit_quantize`, and JAX's resident keys. Neither passes a T5 tokenizer,
+as in JAX, so both condition on a zero T5 context.
 """
 from __future__ import annotations
 
@@ -234,12 +242,13 @@ def svd_factory(prefs: Preferences, device=None,
                 deep_cache_branch=int(params.get("deep_cache_branch", 1)),
                 tome_ratio=float(params.get("tome_ratio", 0.0)),
                 ada_cache=float(params.get("ada_cache", 0.0)))
-            film = {k: params[k] for k in ("interpolation_frames", "make_mp4",
-                                           "output_mp4") if params.get(k)}
-            if film:
+            # as in JAX, make_mp4 and output_mp4 act only after FILM passes
+            passes = int(params.get("interpolation_frames", 0))
+            if passes:
                 raise NotImplementedError(
                     f"FILM interpolation and the mp4 writer are not ported "
-                    f"(ROADMAP.md, M15b: they need cv2): {film}")
+                    f"(ROADMAP.md, M15b: they need cv2): interpolation_frames "
+                    f"{passes}")
             check_supported(opts)       # before a model is loaded for it
             quantize = params.get("unet_quantize") or None
             pipe = resident.get(
@@ -253,6 +262,67 @@ def svd_factory(prefs: Preferences, device=None,
                     if isinstance(v, (int, float, str))}
             for i, f in enumerate(frames):
                 result_cb(f, {"frame": i, **meta})
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+def sd3_factory(prefs: Preferences, device=None,
+                resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for SD3
+    txt2img jobs, loading the bundle from the one file the job or `prefs`
+    names."""
+    from cremage_tpu_torch.pipelines.loader import load_sd3_bundle
+    from cremage_tpu_torch.pipelines.sd3 import SD3Pipeline, check_supported
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            check_supported(opts)       # before a model is loaded for it
+            ckpt = opts.ckpt or _model_path(prefs, "sd3_ldm_model_path",
+                                            "sd3_ldm_model")
+            include_t5 = params.get("include_t5", True)
+            quantize_t5 = params.get("sd3_quantize_t5")
+            quantize_dit = params.get("dit_quantize") or None
+            pipe = resident.get(
+                ("sd3", ckpt, include_t5, quantize_t5, quantize_dit),
+                lambda: SD3Pipeline(load_sd3_bundle(
+                    ckpt, include_t5=include_t5, quantize_t5=quantize_t5,
+                    quantize_dit=quantize_dit, device=device), device=device))
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+def pixart_factory(prefs: Preferences, device=None,
+                   resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for PixArt-Σ
+    txt2img jobs, loading the bundle from the transformer file the job or
+    `prefs` names and the job's `vae_ckpt`."""
+    from cremage_tpu_torch.pipelines.loader import load_pixart_bundle
+    from cremage_tpu_torch.pipelines.pixart import PixArtPipeline
+    from cremage_tpu_torch.pipelines.sd3 import check_supported
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            check_supported(opts)       # before a model is loaded for it
+            ckpt = opts.ckpt or _model_path(
+                prefs, "pixart_sigma_ldm_model_path", "pixart_sigma_ldm_model")
+            quantize = params.get("dit_quantize") or None
+            pipe = resident.get(
+                ("pixart", ckpt, opts.vae_ckpt or None, quantize),
+                lambda: PixArtPipeline(load_pixart_bundle(
+                    ckpt, vae_ckpt=opts.vae_ckpt or None,
+                    quantize_dit=quantize, device=device), device=device))
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
         generate.resident = resident
         return generate
 

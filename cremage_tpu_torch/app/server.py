@@ -41,8 +41,8 @@ import numpy as np
 from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
-    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_SD_1_5, GMT_SDXL, GMT_SVD,
-    GenerationOptions, MODE_INPAINTING,
+    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_PIXART_SIGMA, GMT_SD_1_5,
+    GMT_SD_3, GMT_SDXL, GMT_SVD, GenerationOptions, MODE_INPAINTING,
 )
 from cremage_tpu_torch.io.png import decode_png, encode_png, read_png
 
@@ -145,16 +145,19 @@ class ApiServer:
 
             # SDXL and SVD run the sgm menu, SD1.5 the k-diffusion/DDIM
             # names, as the JAX server lists them; both run the extra
-            # samplers. FLUX (flow Euler) takes the k-diffusion names and
-            # ignores them, as in the JAX server
-            return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_FLUX_1_SCHNELL,
+            # samplers. FLUX and SD3 (flow Euler) take the k-diffusion
+            # names and ignore them, PixArt runs them, as in the JAX server
+            return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_SD_3,
+                                    GMT_PIXART_SIGMA, GMT_FLUX_1_SCHNELL,
                                     GMT_SVD],
                     "modes": list(MODES), "samplers": list(SAMPLER_MENU),
                     "extra_samplers": list(EXTRA_SAMPLERS),
                     "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
                                          GMT_SDXL: list(SGM_SAMPLER_NAMES),
                                          GMT_FLUX_1_SCHNELL: list(SAMPLER_MENU),
-                                         GMT_SVD: list(SGM_SAMPLER_NAMES)}}
+                                         GMT_SVD: list(SGM_SAMPLER_NAMES),
+                                         GMT_SD_3: list(SAMPLER_MENU),
+                                         GMT_PIXART_SIGMA: list(SAMPLER_MENU)}}
         if path == "/v1/upload" and method == "POST":
             if not isinstance(body, dict) or "image" not in body:
                 raise BadRequest("body must be {\"image\": <b64 PNG>}")
@@ -344,8 +347,8 @@ def build_server(argv=None) -> ApiServer:
         deny_terms=args.deny_term) if args.deny_term else None)
     if args.config:
         from cremage_tpu_torch.app.backends import (
-            ResidentInstance, flux_factory, sd15_factory, sdxl_factory,
-            svd_factory,
+            ResidentInstance, flux_factory, pixart_factory, sd3_factory,
+            sd15_factory, sdxl_factory, svd_factory,
         )
         from cremage_tpu_torch.core.config import load_preferences
 
@@ -358,6 +361,10 @@ def build_server(argv=None) -> ApiServer:
             prefs, resident=resident))
         worker.register_backend(GMT_SVD, svd_factory(prefs,
                                                      resident=resident))
+        worker.register_backend(GMT_SD_3, sd3_factory(prefs,
+                                                      resident=resident))
+        worker.register_backend(GMT_PIXART_SIGMA, pixart_factory(
+            prefs, resident=resident))
     else:
         from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle
 

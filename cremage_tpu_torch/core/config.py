@@ -142,7 +142,10 @@ class Preferences:
     embedding_path; the SDXL backend loads sdxl_ldm_model_path /
     sdxl_ldm_model (sdxl_ldm_inpaint_model, when set, for mode
     "inpainting") and TI files from sdxl_embedding_path; the SVD backend
-    loads svd_model_path joined with a job's svd_model. A job's VAE,
+    loads svd_model_path joined with a job's svd_model; the SD3 and
+    PixArt-Σ backends sd3_ldm_model_path / sd3_ldm_model and
+    pixart_sigma_ldm_model_path / pixart_sigma_ldm_model unless the job
+    names its `ckpt`. A job's VAE,
     ControlNet and LoRA paths are used as given, as in the JAX backends, so
     control_model_path and lora_model_path only tell a client where the
     model files are."""
@@ -158,6 +161,10 @@ class Preferences:
     sdxl_ldm_inpaint_model: str = "None"
     sdxl_embedding_path: str = "models/embeddings_sdxl"
     svd_model_path: str = "models/svd"
+    sd3_ldm_model_path: str = "models/sd3_ldm"
+    sd3_ldm_model: str = "None"
+    pixart_sigma_ldm_model_path: str = "models/pixart_sigma_ldm"
+    pixart_sigma_ldm_model: str = "None"
 
 
 _PREF_FIELDS = {f.name for f in dataclasses.fields(Preferences)}

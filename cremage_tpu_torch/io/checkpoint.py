@@ -31,6 +31,14 @@
   decoded with the image decoder, as in JAX), and every conditioner key
   outside the visual tower (open_clip's text-side tables, the other
   embedders' encoder).
+- SD3 ships as one file (`split_sd3`): the MMDiT under
+  `model.diffusion_model.`, the 16-channel VAE (no quant convs) under
+  `first_stage_model.`, CLIP-L and bigG in HF's CLIPTextModelWithProjection
+  layout under `text_encoders.clip_{l,g}.transformer.` (bigG mapped onto
+  the port's open_clip names by `hf_text_to_openclip`, its projection
+  transposed; CLIP-L's projection dropped by name, since SD3 conditions on
+  the unprojected pooled output) and, optionally, T5-XXL under
+  `text_encoders.t5xxl.transformer.` (HF's encoder layout).
 - FLUX ships as separate files: the BFL transformer (bare keys, or under
   `model.diffusion_model.`), HF's T5 encoder (`t5_encoder_state_dict`:
   `encoder.` stripped, the block-0 bias table lifted, the tied
@@ -75,6 +83,14 @@ PREFIX_VISUAL_SVD = "conditioner.embedders.0.open_clip.model.visual."
 # the VideoDecoder's temporal layers (VideoResBlock time_stack and
 # mix_factor, AE3DConv time_mix_conv), which the image decoder lacks
 SVD_TEMPORAL_DECODER = ("time_stack", "time_mix", "mix_factor")
+# SD3's single file: CLIP-L and bigG in HF's CLIPTextModelWithProjection
+# layout, HF's T5 encoder (`encoder.` and the shared table under it)
+PREFIX_SD3_CLIP_L = "text_encoders.clip_l.transformer.text_model."
+PREFIX_SD3_CLIP_G = "text_encoders.clip_g.transformer.text_model."
+PREFIX_SD3_T5 = "text_encoders.t5xxl.transformer."
+SD3_CLIP_G_PROJECTION = "text_encoders.clip_g.transformer.text_projection.weight"
+# CLIP-L's projection: SD3 conditions on the unprojected pooled output
+SD3_DROPPED = frozenset(("text_encoders.clip_l.transformer.text_projection.weight",))
 # SDXL checkpoint keys of no model of the port besides the SD1.5 ones:
 # the sgm denoiser's sigma table (the port builds its own)
 SDXL_EXTRA_KEYS = frozenset(("denoiser.sigmas",))
@@ -323,6 +339,63 @@ def split_svd(sd: Mapping[str, torch.Tensor]
     return {PREFIX_UNET: component_state_dict(keep, PREFIX_UNET),
             PREFIX_VAE: component_state_dict(keep, PREFIX_VAE),
             PREFIX_VISUAL_SVD: openclip_text_subdict(keep, PREFIX_VISUAL_SVD)}
+
+
+def split_sd3(sd: Mapping[str, torch.Tensor]
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An SD3 single-file state dict -> {prefix: component dict} of the
+    MMDiT, the VAE, CLIP-L, bigG (in the port's open_clip naming,
+    `hf_text_to_openclip`) and T5 (`t5_encoder_state_dict`; empty when the
+    file has none). The keys of SD3_DROPPED go; any other key that belongs
+    to no component raises."""
+    prefixes = (PREFIX_UNET, PREFIX_VAE, PREFIX_SD3_CLIP_L, PREFIX_SD3_CLIP_G,
+                PREFIX_SD3_T5)
+    unknown = [k for k in sd if not k.startswith(prefixes)
+               and k not in SD3_DROPPED and k != SD3_CLIP_G_PROJECTION]
+    if unknown:
+        raise KeyError(f"{len(unknown)} checkpoint keys belong to no SD3 "
+                       f"component (first 10): {sorted(unknown)[:10]}")
+    g = component_state_dict(sd, PREFIX_SD3_CLIP_G)
+    if SD3_CLIP_G_PROJECTION in sd:
+        g["text_projection.weight"] = sd[SD3_CLIP_G_PROJECTION]
+    return {PREFIX_UNET: component_state_dict(sd, PREFIX_UNET),
+            PREFIX_VAE: component_state_dict(sd, PREFIX_VAE),
+            PREFIX_SD3_CLIP_L: component_state_dict(sd, PREFIX_SD3_CLIP_L),
+            PREFIX_SD3_CLIP_G: hf_text_to_openclip(g),
+            PREFIX_SD3_T5: t5_encoder_state_dict(
+                component_state_dict(sd, PREFIX_SD3_T5))}
+
+
+HF_OPENCLIP_LAYER = (("self_attn.", "attn."), ("layer_norm1.", "ln_1."),
+                      ("layer_norm2.", "ln_2."), ("mlp.fc1.", "mlp.c_fc."),
+                      ("mlp.fc2.", "mlp.c_proj."))
+
+
+def hf_text_to_openclip(sd: Mapping[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+    """An HF CLIPTextModel(WithProjection) text tower (keys stripped of
+    `text_model.`, its projection as `text_projection.weight`) -> the
+    port's OpenCLIPTextModel keys. HF's projection is a Linear weight
+    (out, in); open_clip's `text_projection` is used as x @ P, so it is
+    the transpose. Any key outside the tower raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k == "text_projection.weight":
+            out["text_projection"] = v.t()
+        elif k == "embeddings.token_embedding.weight":
+            out["token_embedding.weight"] = v
+        elif k == "embeddings.position_embedding.weight":
+            out["positional_embedding"] = v
+        elif k.startswith("encoder.layers."):
+            i, sub = k[len("encoder.layers."):].split(".", 1)
+            for a, b in HF_OPENCLIP_LAYER:
+                sub = sub.replace(a, b)
+            out[f"transformer.resblocks.{i}.{sub}"] = v
+        elif k.startswith("final_layer_norm."):
+            out["ln_final." + k[len("final_layer_norm."):]] = v
+        else:
+            raise KeyError(f"HF CLIP text tower: unknown key {k}")
+    return out
 
 
 def openclip_text_subdict(sd: Mapping[str, torch.Tensor],

@@ -28,7 +28,8 @@ from cremage_tpu_torch.io.quantize import leaf_to_tensor
 _NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
                          "positional_embedding", "text_projection",
                          "concept_embeds", "special_care_embeds",
-                         "relative_attention_bias", "shared")
+                         "relative_attention_bias", "shared",
+                         "scale_shift_table")
 # rank-2 tensors used as x @ P, matched by their whole name
 _NO_TRANSPOSE_NAMES = ("proj",)
 

@@ -11,10 +11,13 @@ at use) for int8.
 Which weights: the 2-D `weight` of every `Linear` of at least `min_size`
 elements whose dotted name (lowercased) holds none of DEFAULT_EXCLUDE
 (the gather tables) and that is not already 8-bit, as JAX's
-`should_quantize` decides over its parameter tree. The JAX package's
-int8 branch for 4-D conv kernels (`include_convs`, the UNets' w8a8 path)
-has no port: PyTorch has no int8 convolution on CUDA, and the pipelines
-refuse `unet_quantize="int8"`.
+`should_quantize` decides over its parameter tree; with `include_convs`
+(JAX's int8 storage of the DiTs) also the 4-D weight of each such
+`Conv2d`, which must be a patch embedding (models/layers.py
+`PatchConv8bit`: stride = kernel, no padding, a product over patches).
+The UNets' int8 path (w8a8 3x3 convolutions) has no port: PyTorch has no
+int8 convolution on CUDA, and the pipelines refuse
+`unet_quantize="int8"`.
 
 Quantizing happens on the device, tensor by tensor: `quantize_weight`
 takes one weight in the dtype the model keeps its weights in, the
@@ -100,10 +103,13 @@ def leaf_to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 
 def should_quantize(name: str, weight: torch.Tensor, *,
                     min_size: int = MIN_SIZE,
-                    exclude: Tuple[str, ...] = DEFAULT_EXCLUDE) -> bool:
-    """A 2-D floating `*.weight` of at least min_size elements, not yet
-    8-bit, whose name holds no exclude substring."""
-    if weight.ndim != 2 or weight.numel() < min_size:
+                    exclude: Tuple[str, ...] = DEFAULT_EXCLUDE,
+                    include_convs: bool = False) -> bool:
+    """A 2-D (with include_convs, also 4-D) floating `*.weight` of at
+    least min_size elements, not yet 8-bit, whose name holds no exclude
+    substring."""
+    ndims = (2, 4) if include_convs else (2,)
+    if weight.ndim not in ndims or weight.numel() < min_size:
         return False
     if not name.endswith("weight") or not weight.is_floating_point():
         return False
@@ -114,7 +120,8 @@ def should_quantize(name: str, weight: torch.Tensor, *,
 
 def quantize_weight(w: torch.Tensor, dtype: str
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(out, in) weight -> (codes, float32 scale of each output row):
+    """(out, in) or (out, in, kh, kw) weight -> (codes, float32 scale of
+    each output channel):
     scale = max(max|w| / qmax, 1e-12), codes = w / scale in float32, cast
     (float8, round to nearest even) or rounded and clipped (int8)."""
     qdt, qmax = QUANT_DTYPES[check_dtype(dtype)]
@@ -126,34 +133,43 @@ def quantize_weight(w: torch.Tensor, dtype: str
     return q.to(qdt), s
 
 
-def targets(module: nn.Module, min_size: int = MIN_SIZE) -> Dict[str, nn.Module]:
-    """{dotted weight name: Linear} of the weights 8-bit storage takes."""
-    from cremage_tpu_torch.models.layers import Linear
+def targets(module: nn.Module, min_size: int = MIN_SIZE,
+            include_convs: bool = False) -> Dict[str, nn.Module]:
+    """{dotted weight name: Linear or Conv2d} of the weights 8-bit storage
+    takes (convolutions with include_convs only)."""
+    from cremage_tpu_torch.models.layers import Conv2d, Linear
 
+    kinds = (Linear, Conv2d) if include_convs else (Linear,)
     return {f"{name}.weight": m for name, m in module.named_modules()
-            if isinstance(m, Linear) and should_quantize(
-                f"{name}.weight", m.weight, min_size=min_size)}
+            if isinstance(m, kinds) and should_quantize(
+                f"{name}.weight", m.weight, min_size=min_size,
+                include_convs=include_convs)}
 
 
-def set_8bit(linear: nn.Module, codes: torch.Tensor,
+def set_8bit(layer: nn.Module, codes: torch.Tensor,
              scale: torch.Tensor) -> None:
     """Store `codes` as the layer's weight and `scale` as its
     weight_scale buffer, and make the layer a models/layers.py
-    `Linear8bit`, whose forward takes them (a plain Linear's forward
-    stays free of the 8-bit branches)."""
-    from cremage_tpu_torch.models.layers import Linear8bit
+    `Linear8bit` (a Conv2d: `PatchConv8bit`, int8 only), whose forward
+    takes them (a plain layer's forward stays free of the 8-bit
+    branches)."""
+    from cremage_tpu_torch.models.layers import Linear, Linear8bit, PatchConv8bit
 
-    linear.weight = nn.Parameter(codes, requires_grad=False)
-    linear.register_buffer("weight_scale", scale)
-    linear.__class__ = Linear8bit
+    if not isinstance(layer, Linear) and codes.dtype != torch.int8:
+        raise ValueError("8-bit convolutions are int8 only (JAX's Conv has "
+                         "no float8 branch)")
+    layer.weight = nn.Parameter(codes, requires_grad=False)
+    layer.register_buffer("weight_scale", scale)
+    layer.__class__ = Linear8bit if isinstance(layer, Linear) else PatchConv8bit
 
 
-def prepare_8bit(module: nn.Module, dtype: str, min_size: int = MIN_SIZE) -> int:
+def prepare_8bit(module: nn.Module, dtype: str, min_size: int = MIN_SIZE,
+                 include_convs: bool = False) -> int:
     """Give each target of `module` (on the meta device) an empty 8-bit
     weight and scale, so that io/checkpoint.py `load_into` quantizes it as
     it loads. -> the number of targets."""
     qdt, _ = QUANT_DTYPES[check_dtype(dtype)]
-    found = targets(module, min_size)
+    found = targets(module, min_size, include_convs)
     for lin in found.values():
         w = lin.weight
         set_8bit(lin, torch.empty(w.shape, dtype=qdt, device=w.device),
@@ -161,13 +177,13 @@ def prepare_8bit(module: nn.Module, dtype: str, min_size: int = MIN_SIZE) -> int
     return len(found)
 
 
-def quantize_module(module: nn.Module, dtype: str,
-                    min_size: int = MIN_SIZE) -> dict:
+def quantize_module(module: nn.Module, dtype: str, min_size: int = MIN_SIZE,
+                    include_convs: bool = False) -> dict:
     """Quantize the targets of a loaded module in place, one weight at a
     time. -> a report: tensors, bytes before and after, dtype."""
     report = {"tensors": 0, "bytes_before": 0, "bytes_after": 0,
               "dtype": check_dtype(dtype)}
-    for lin in targets(module, min_size).values():
+    for lin in targets(module, min_size, include_convs).values():
         w = lin.weight.data
         report["tensors"] += 1
         report["bytes_before"] += w.numel() * w.element_size()
@@ -179,9 +195,10 @@ def quantize_module(module: nn.Module, dtype: str,
 
 def storage_report(module: nn.Module, dtype: str) -> dict:
     """The report of quantize_module for a module already in 8 bits."""
-    from cremage_tpu_torch.models.layers import Linear8bit
+    from cremage_tpu_torch.models.layers import Linear8bit, PatchConv8bit
 
-    lins = [m for m in module.modules() if isinstance(m, Linear8bit)]
+    lins = [m for m in module.modules()
+            if isinstance(m, (Linear8bit, PatchConv8bit))]
     return {"tensors": len(lins), "dtype": dtype,
             "bytes_after": sum(m.weight.numel() + 4 * m.weight.shape[0]
                                for m in lins)}

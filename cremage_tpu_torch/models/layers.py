@@ -9,7 +9,8 @@ Conventions:
   `set_compute_dtype`) and run like the JAX layers: accumulate in fp32,
   round to the compute dtype, then add the bias in the compute dtype;
   `Linear8bit` holds 8-bit codes and a `weight_scale` instead
-  (io/quantize.py);
+  (io/quantize.py), and `PatchConv8bit` the int8 codes of a DiT's patch
+  embedding;
 - GroupNorm/LayerNorm parameters and statistics stay float32.
 """
 from __future__ import annotations
@@ -117,6 +118,41 @@ class Linear8bit(Linear):
         if self.bias is not None:
             y = y + self.bias.to(x.dtype)
         return y
+
+
+class PatchConv8bit(Conv2d):
+    """A patch embedding (stride = kernel, no padding) over int8 codes and
+    a float32 `weight_scale` per output channel (io/quantize.py `set_8bit`
+    makes a Conv2d one), in the order of cremage_tpu/models/layers.py
+    `Conv`'s w8a8 branch: the activations quantized per image (scale =
+    max(max|x| over the image / 127, 1e-12), codes round(x / scale)), the
+    int8 x int8 -> int32 product, then the image scale, the channel scale,
+    the cast and the bias. The patches do not overlap, so JAX's int8
+    convolution is exactly the product of each patch (c, dy, dx) with the
+    weight rows: `torch._int_mm` over the patches."""
+
+    def forward(self, x):
+        w = self.weight
+        o, c, p, _ = w.shape
+        if self.stride != (p, p) or self.padding != (0, 0):
+            raise NotImplementedError("int8 convolution other than a patch "
+                                      "embedding (stride = kernel, no padding)")
+        b, _, h, wd = x.shape
+        a_scale = torch.clamp_min(
+            x.abs().amax(dim=(1, 2, 3)).float() / 127.0, 1e-12)
+        xq = torch.round(x.float() / a_scale[:, None, None, None]).to(torch.int8)
+        hp, wp = h // p, wd // p
+        rows = xq.reshape(b, c, hp, p, wp, p).permute(0, 2, 4, 1, 3, 5)
+        rows = rows.reshape(b * hp * wp, c * p * p)
+        m = rows.shape[0]
+        if m <= 16:        # cuBLAS's int8 product takes more than 16 rows
+            rows = F.pad(rows, (0, 0, 0, 17 - m))
+        acc = torch._int_mm(rows, w.reshape(o, -1).t())[:m]
+        y = acc.float().view(b, hp * wp, o) * a_scale[:, None, None]
+        y = (y * self.weight_scale).to(x.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(x.dtype)
+        return y.transpose(1, 2).reshape(b, o, hp, wp)
 
 
 class LayerNorm(nn.LayerNorm):

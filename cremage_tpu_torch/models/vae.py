@@ -44,6 +44,14 @@ def sdxl_vae_config(**kw) -> VAEConfig:
     return VAEConfig(scale_factor=0.13025, **kw)
 
 
+def sd3_vae_config(**kw) -> VAEConfig:
+    """SD3's VAE: 16 latent channels, z = (x - 0.0609) * 1.5305, no quant
+    convs (the published file has neither: diffusers' SD3 VAE config sets
+    use_quant_conv and use_post_quant_conv to false)."""
+    return VAEConfig(z_channels=16, scale_factor=1.5305, shift_factor=0.0609,
+                     quant_convs=False, **kw)
+
+
 def flux_vae_config(**kw) -> VAEConfig:
     """FLUX's VAE (BFL's ae.safetensors): 16 latent channels, z = (x -
     0.1159) * 0.3611, no quant convs."""

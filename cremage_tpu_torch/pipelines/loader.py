@@ -1,6 +1,7 @@
-"""Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle / SVDBundle
-(the port of cremage_tpu/pipelines/loader.py `load_sd15_bundle`,
-`load_sdxl_bundle`, `load_flux_bundle` and `load_svd_bundle`),
+"""Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle / SVDBundle /
+SD3Bundle / PixArtBundle (the port of cremage_tpu/pipelines/loader.py
+`load_sd15_bundle`, `load_sdxl_bundle`, `load_flux_bundle`,
+`load_svd_bundle`, `load_sd3_bundle` and `load_pixart_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
 ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
 into the base model only, as in JAX; the refiner takes none.
@@ -32,28 +33,34 @@ import torch
 from cremage_tpu_torch.core.rng import resolve_device
 from cremage_tpu_torch.io import checkpoint as CK
 from cremage_tpu_torch.io.lora import merge_lora
+from cremage_tpu_torch.io.diffusers_keys import pixart_from_diffusers
 from cremage_tpu_torch.io.quantize import (
-    check_dtype, prepare_8bit, quantize_module, storage_report, unet_kind,
+    MIN_SIZE, check_dtype, prepare_8bit, quantize_module, storage_report,
+    unet_kind,
 )
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.clip_vision import CLIPVisionModel, vit_h14_config
 from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
 from cremage_tpu_torch.models.flux import FluxModel, flux_dev_config, flux_schnell_config
 from cremage_tpu_torch.models.layers import set_compute_dtype
+from cremage_tpu_torch.models.mmdit import MMDiT, sd3_medium_config
 from cremage_tpu_torch.models.open_clip import (
     OpenCLIPTextModel, openclip_bigg_config,
 )
+from cremage_tpu_torch.models.pixart import PixArt, pixart_sigma_xl_config
 from cremage_tpu_torch.models.unet import (
     UNetConfig, UNetModel, sd15_unet_config, sdxl_base_unet_config,
     sdxl_refiner_unet_config,
 )
 from cremage_tpu_torch.models.t5 import T5Encoder, t5_xxl_config
 from cremage_tpu_torch.models.vae import (
-    AutoencoderKL, VAEConfig, flux_vae_config, sdxl_vae_config,
+    AutoencoderKL, VAEConfig, flux_vae_config, sd3_vae_config, sdxl_vae_config,
 )
 from cremage_tpu_torch.models.video_unet import VideoUNet, svd_unet_config
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.pipelines.flux import FluxBundle, FluxConditioner
+from cremage_tpu_torch.pipelines.pixart import PixArtBundle
+from cremage_tpu_torch.pipelines.sd3 import SD3Bundle, SD3Conditioner
 from cremage_tpu_torch.pipelines.sd15 import SD15Bundle
 from cremage_tpu_torch.pipelines.sdxl import SDXLBundle, SDXLConditioner
 from cremage_tpu_torch.pipelines.svd import SVDBundle
@@ -63,15 +70,20 @@ from cremage_tpu_torch.samplers import schedules as S
 logger = logging.getLogger(__name__)
 
 
-def _on_meta(cls, cfg, dtype, quantize: Optional[str] = None):
-    """`cls(cfg)` on the meta device in `dtype`, the linear weights that
-    io/quantize.py `targets` takes made 8-bit if `quantize` names a kind
-    (filled by `_Loads.fill`)."""
+def _on_meta(cls, cfg, dtype, quantize: Optional[str] = None, **kw):
+    """`cls(cfg)` on the meta device in `dtype`, the weights that
+    io/quantize.py `targets` takes (`kw`: its min_size, include_convs) made
+    8-bit if `quantize` names a kind (filled by `_Loads.fill`)."""
     with torch.device("meta"):
         module = set_compute_dtype(cls(cfg), dtype)
     if quantize:
-        prepare_8bit(module, quantize)
+        prepare_8bit(module, quantize, **kw)
     return module
+
+
+def _dit_kind(quantize: Optional[str]) -> Optional[str]:
+    """A DiT's or T5's 8-bit kind: None for None, "" and "none"."""
+    return None if quantize in (None, "", "none") else check_dtype(quantize)
 
 
 class _Loads:
@@ -282,7 +294,7 @@ def load_flux_bundle(ckpt: str, vae_ckpt: str, clip_ckpt: Optional[str] = None,
             "FLUX needs clip_ckpt (CLIP-L in HF's text_model. layout): the "
             "JAX loader runs a randomly initialised CLIP-L without it, the "
             "port refuses")
-    quantize = None if quantize in (None, "", "none") else check_dtype(quantize)
+    quantize = _dit_kind(quantize)
     device = resolve_device(device)
     loads = _Loads(device, dtype)
     cfg = (flux_dev_config if guidance_embed else flux_schnell_config)(
@@ -341,3 +353,81 @@ def load_svd_bundle(ckpt: str, num_frames: int = 14,
             visual, ckpt, "CLIP-H image tower")
     return SVDBundle(unet=unet, vae=vae, clip_vision=clip_vision,
                      load_report=loads.report)
+
+
+def load_sd3_bundle(ckpt: str, include_t5: bool = True, t5_tokenize=None,
+                    embedding_dir: Optional[str] = None,
+                    quantize_t5: Optional[str] = None,
+                    quantize_dit: Optional[str] = None,
+                    quantize_min_size: int = MIN_SIZE, device=None,
+                    dtype: torch.dtype = torch.bfloat16) -> SD3Bundle:
+    """An SD3-medium bundle on `device` (CUDA unless named) in `dtype` from
+    its one file in the published layout (io/checkpoint.py `split_sd3`):
+    the MMDiT, the 16-channel VAE, CLIP-L, bigG and, when `include_t5` is
+    set and the file has T5 keys, T5-XXL (loaded as in JAX even though
+    the served request conditions on zeros: the factory passes no
+    `t5_tokenize`). `quantize_dit` ("float8_e4m3", "float8_e5m2", "int8";
+    None or "none" for none) stores the MMDiT's linear weights of at least
+    `quantize_min_size` elements in 8 bits, and under int8 its patch
+    embedding too, as JAX's `_quantize_tree`; `quantize_t5` T5's linear
+    weights (at the default min size, as JAX). Each is quantized from its
+    file tensor on the device as it loads. `load_report` as in
+    load_sd15_bundle."""
+    quantize, q_t5 = _dit_kind(quantize_dit), _dit_kind(quantize_t5)
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    parts = CK.split_sd3(loads.read(ckpt))
+    mmdit = loads.fill(
+        _on_meta(MMDiT, sd3_medium_config(dtype=dtype), dtype, quantize,
+                 min_size=quantize_min_size, include_convs=quantize == "int8"),
+        parts.pop(CK.PREFIX_UNET), ckpt, "MMDiT", quantize)
+    vae = loads.fill(_on_meta(AutoencoderKL, sd3_vae_config(dtype=dtype), dtype),
+                     parts.pop(CK.PREFIX_VAE), ckpt, "VAE")
+    clip = loads.fill(_on_meta(CLIPTextModel, CLIPTextConfig(dtype=dtype), dtype),
+                      parts.pop(CK.PREFIX_SD3_CLIP_L), ckpt, "CLIP-L")
+    oc = loads.fill(
+        _on_meta(OpenCLIPTextModel, openclip_bigg_config(dtype=dtype), dtype),
+        parts.pop(CK.PREFIX_SD3_CLIP_G), ckpt, "OpenCLIP bigG")
+    t5_sd = parts.pop(CK.PREFIX_SD3_T5)
+    t5 = None
+    if include_t5 and t5_sd:
+        t5 = loads.fill(_on_meta(T5Encoder, t5_xxl_config(dtype=dtype), dtype,
+                                 q_t5), t5_sd, ckpt, "T5", q_t5)
+    del parts, t5_sd
+    cond = SD3Conditioner(clip, oc, default_tokenizer(), t5=t5,
+                          t5_tokenize=t5_tokenize, embedding_dir=embedding_dir)
+    return SD3Bundle(mmdit=mmdit, conditioner=cond, vae=vae,
+                     load_report=loads.report)
+
+
+def load_pixart_bundle(transformer_ckpt: str, vae_ckpt: Optional[str] = None,
+                       t5_tokenize=None, t5_len: int = 120,
+                       quantize_dit: Optional[str] = None,
+                       quantize_min_size: int = MIN_SIZE, device=None,
+                       dtype: torch.dtype = torch.bfloat16) -> PixArtBundle:
+    """A PixArt-Σ bundle on `device` (CUDA unless named) in `dtype` from a
+    diffusers PixArtTransformer2DModel file (io/diffusers_keys.py
+    `pixart_from_diffusers`) and a standalone VAE file (the SD VAE
+    architecture at JAX's `VAEConfig()` scale, 0.18215). No T5 tower is
+    loaded, as in JAX: the caption is zeros of (t5_len, 4096).
+    `quantize_dit` as in load_sd3_bundle. JAX decodes with an all-zero VAE
+    when no `vae_ckpt` is named; the port refuses. `load_report` as in
+    load_sd15_bundle."""
+    if not vae_ckpt:
+        raise FileNotFoundError(
+            "PixArt needs vae_ckpt (the SD VAE as a standalone file): the JAX "
+            "loader decodes with an all-zero VAE without it, the port refuses")
+    quantize = _dit_kind(quantize_dit)
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    dit = loads.fill(
+        _on_meta(PixArt, pixart_sigma_xl_config(dtype=dtype), dtype, quantize,
+                 min_size=quantize_min_size, include_convs=quantize == "int8"),
+        pixart_from_diffusers(loads.read(transformer_ckpt)), transformer_ckpt,
+        "PixArt DiT", quantize)
+    vae = loads.fill(
+        _on_meta(AutoencoderKL, VAEConfig(dtype=dtype), dtype),
+        CK.component_state_dict(CK.vae_state_dict_from_standalone(
+            loads.read(vae_ckpt)), CK.PREFIX_VAE), vae_ckpt, "VAE")
+    return PixArtBundle(dit=dit, vae=vae, t5_tokenize=t5_tokenize,
+                        t5_len=t5_len, load_report=loads.report)

@@ -1,4 +1,5 @@
-"""Rectified-flow sampling for FLUX (the port of cremage_tpu/samplers/flow.py).
+"""Rectified-flow sampling for FLUX and SD3 (the port of
+cremage_tpu/samplers/flow.py).
 
 x_sigma = (1 - sigma) x0 + sigma noise; the model predicts the velocity
 v = noise - x0, and Euler steps x += (sigma_next - sigma) v. The sigmas
@@ -9,8 +10,7 @@ Schedules: FLUX-schnell unshifted; FLUX-dev the resolution-dependent "mu"
 time shift (sigma' = e^mu / (e^mu + 1/sigma - 1)); a plain shift
 (sigma' = shift sigma / (1 + (shift - 1) sigma)) as SD3 takes it.
 `cfg_velocity` is classifier-free guidance for velocity models (FLUX's
-guidance is distilled into its embedding; the JAX package's SD3 takes
-it).
+guidance is distilled into its embedding; SD3 takes it).
 """
 from __future__ import annotations
 
@@ -45,6 +45,10 @@ def flow_sigmas(steps: int, shift: float = 1.0,
     elif shift != 1.0:
         sigmas = shift_sigmas(sigmas, shift)
     return np.concatenate([sigmas, [0.0]])
+
+
+def sd3_sigmas(steps: int, shift: float = 3.0) -> np.ndarray:
+    return flow_sigmas(steps, shift=shift)
 
 
 def sample_flow_euler(v_fn: Callable, x: torch.Tensor, sigmas,

@@ -5,7 +5,7 @@ All schedule math is float64 on the host (numpy); schedules are tiny
 (<= 1001 elements), so there is no reason to compute them on the device.
 
 - DDPM "linear" beta schedule = linspace in sqrt(beta) space, squared
-  (CompVis convention).
+  (CompVis convention); PixArt's true-linear one (linspace in beta).
 - k-diffusion discrete schedule: sigma_t = sqrt((1-acp_t)/acp_t),
   `get_sigmas(n)` linspace over t then interp in log-sigma, append 0.
 - Karras (rho = 7) sigmas over the model's [sigma_min, sigma_max] for the
@@ -30,6 +30,15 @@ def make_betas_linear(
     return (
         np.linspace(linear_start**0.5, linear_end**0.5, n, dtype=np.float64) ** 2
     )
+
+
+def make_betas_plain_linear(
+    n: int = DDPM_NUM_TIMESTEPS,
+    beta_start: float = 0.0001,
+    beta_end: float = 0.02,
+) -> np.ndarray:
+    """True-linear beta schedule (diffusers 'linear'; PixArt)."""
+    return np.linspace(beta_start, beta_end, n, dtype=np.float64)
 
 
 def alphas_cumprod_from_betas(betas: np.ndarray) -> np.ndarray:

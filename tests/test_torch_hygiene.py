@@ -15,8 +15,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     PIL, transformers): counted beyond what a bare `import torch, numpy,
     scipy` loads. The checkpoint, LoRA, ControlNet and safety modules,
     SDXL's, FLUX's with 8-bit storage and the SentencePiece tokenizer, and
-    SVD's (its INTER_AREA resize among them, in place of cv2's), are among
-    those imported."""
+    SVD's (its INTER_AREA resize among them, in place of cv2's), SD3's
+    and PixArt-Σ's, and the tier-1 schedule replay, are among those
+    imported."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy, scipy, scipy.fft, torch
@@ -44,7 +45,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                     "io.quantize", "prompt.sentencepiece", "models.flux",
                     "models.t5", "samplers.flow", "pipelines.flux",
                     "models.clip_vision", "models.video_unet",
-                    "pipelines.svd", "utils.profile_svd"):
+                    "pipelines.svd", "utils.profile_svd", "models.mmdit",
+                    "models.pixart", "pipelines.sd3", "pipelines.pixart",
+                    "io.diffusers_keys", "utils.profile_dit",
+                    "utils.xdist_schedule"):
             assert "cremage_tpu_torch." + new in names, new
         print("clean")
     """)

@@ -252,10 +252,12 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     and decoder, of FLUX's double and single blocks (the single block's v
     is a slice of linear1's output), and of SVD's video UNet at one and
     two videos (a (3, 1, 1) convolution's output over one video is a
-    strided view once its frames are put back first) and ViT-H tower
-    here."""
+    strided view once its frames are put back first), ViT-H tower, SD3's
+    MMDiT and PixArt-Σ here."""
     from cremage_tpu_torch.models import clip_vision as CV
     from cremage_tpu_torch.models import flux as FX
+    from cremage_tpu_torch.models import mmdit as MM
+    from cremage_tpu_torch.models import pixart as PXM
     from cremage_tpu_torch.models import open_clip as OC
     from cremage_tpu_torch.models import unet as U
     from cremage_tpu_torch.models import vae as V
@@ -325,3 +327,25 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     with torch.no_grad():
         vit(torch.rand(2, 28, 28, 3))
     assert calls["attn"] == count(vit, OC._Attention) == 2
+
+    # SD3's joint blocks (with and without the qk-norm) and PixArt's self-
+    # and cross-attention (q, k and v are slices of fused projections)
+    monkeypatch.setattr(MM, "attention", attn)
+    monkeypatch.setattr(PXM, "attention", attn)
+    for qk_norm in (False, True):
+        mmdit = MM.MMDiT(MM.MMDiTConfig(
+            depth=2, hidden_size=64, num_heads=2, context_dim=48, pooled_dim=40,
+            pos_embed_max_size=8, qk_norm=qk_norm, dtype=torch.float32)).eval()
+        calls["attn"] = 0
+        with torch.no_grad():
+            mmdit(torch.randn(2, 4, 6, 16), torch.tensor([1.0, 2.0]),
+                  torch.randn(2, 5, 48), torch.randn(2, 40))
+        assert calls["attn"] == count(mmdit, MM.JointBlock) == 2
+    pixart = PXM.PixArt(PXM.PixArtConfig(depth=2, hidden_size=144, num_heads=2,
+                                         context_dim=48,
+                                         dtype=torch.float32)).eval()
+    calls["attn"] = 0
+    with torch.no_grad():
+        pixart(torch.randn(2, 4, 6, 4), torch.tensor([1.0, 2.0]),
+               torch.randn(2, 5, 48))
+    assert calls["attn"] == 2 * count(pixart, PXM.PixArtBlock) == 4

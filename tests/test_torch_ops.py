@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from cremage_tpu_torch.io.quantize import quantize_module
-from cremage_tpu_torch.models.layers import Linear, set_compute_dtype
+from cremage_tpu_torch.models.layers import Conv2d, Linear, set_compute_dtype
 from cremage_tpu_torch.ops.attention import attention
 from cremage_tpu_torch.ops.flash_attention import (
     SMEM_LIMIT, SWIZZLE_BYTES, check_kernel_inputs as check_fa_inputs,
@@ -149,6 +149,10 @@ FLUX_NQ_NK_D = [(4352, 4352, 128), (100, 77, 128), (4352, 4100, 128)]
 SVD_NQ_NK_D = [(9216, 9216, 64), (9216, 1, 64), (2304, 2304, 64),
                (2304, 1, 64), (576, 576, 64), (576, 1, 64), (144, 144, 64),
                (144, 1, 64), (9216, 9216, 512), (257, 257, 80)]
+# the DiTs at 1024^2: SD3's joint attention over [154 context; 4096 latent]
+# tokens (24 heads of 64), PixArt-Σ's self- and cross-attention (over 120
+# T5 tokens) at d = 72, padded to 80 (a partial 16-column TMA box)
+DIT_NQ_NK_D = [(4250, 4250, 64), (4096, 4096, 72), (4096, 120, 72)]
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -208,10 +212,14 @@ def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
 
 def test_plans_take_the_refiner_shapes():
     """The SDXL refiner's K1 and K2 shapes, FLUX's K1 shapes at dp = 128
-    (2 warpgroups, q double-buffered beside a 2-stage ring) and SVD's K1
-    and K2 shapes (one key: a single 80-key tile), through each plan test
+    (2 warpgroups, q double-buffered beside a 2-stage ring), SVD's K1
+    and K2 shapes (one key: a single 80-key tile) and the DiTs' K1 shapes
+    (SD3's 4250 keys, PixArt's d = 72 on dp = 80), through each plan test
     above (one test: under `--dist load` the number of collected items
     sets the suite's wall time, ROADMAP.md)."""
+    for nq, nk, d in DIT_NQ_NK_D:
+        plan = plan_flash(d, nq, nk)
+        assert (plan.dp, plan.nwg, plan.bk) == (-(-d // 16) * 16, 3, 128)
     for nq, nk, d in FLUX_NQ_NK_D:
         plan = plan_flash(d, nq, nk)
         assert (plan.nwg, plan.bq, plan.q_bufs) == (2, 128, 2)
@@ -222,7 +230,8 @@ def test_plans_take_the_refiner_shapes():
         if nk == 1:
             assert (plan_flash(d, nq, nk).bk, plan_flash(d, nq, nk).stages) \
                 == (80, 3)
-    for nq, nk, d in REFINER_NQ_NK_D + FLUX_NQ_NK_D + SVD_NQ_NK_D:
+    for nq, nk, d in (REFINER_NQ_NK_D + FLUX_NQ_NK_D + SVD_NQ_NK_D
+                      + DIT_NQ_NK_D):
         for check in (test_flash_plan_fits_shared_memory,
                       test_flash_plan_tma_boxes, test_flash_plan_key_tile,
                       test_flash_plan_output_split_covers_d_once,
@@ -644,19 +653,40 @@ def _check_8bit_linear(cuda, rows, n_in, n_out, kind):
     assert float((got - want).abs().max()) <= tol, (rows, n_in, n_out, kind)
 
 
+def _check_int8_patch_embedding(cuda, b, h, w):
+    """SD3's int8 patch embedding (`PatchConv8bit`: per-image activation
+    codes, `_int_mm` over the 2x2 patches) on the card against its CPU
+    branch on the same codes, at (b, 16, h, w) latents."""
+    torch.manual_seed(b)
+    conv = set_compute_dtype(Conv2d(16, 1536, 2, stride=2), torch.bfloat16)
+    quantize_module(conv, "int8", min_size=1, include_convs=True)
+    x = torch.from_numpy(np.random.RandomState(h).randn(
+        b, 16, h, w).astype(np.float32)).to(torch.bfloat16)
+    with torch.no_grad():
+        want = conv(x).float()
+        got = copy.deepcopy(conv).to(cuda)(x.to(cuda)).float().cpu()
+    # the int32 products are exact: the scales' float32 products and the
+    # bf16 roundings, a bf16 ulp of the largest output at most
+    tol = 2.0 ** -6 * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol, (b, h, w)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_at_refiner_shapes(cuda):
     """The SDXL refiner's K1 calls on the card (12 and 24 heads of d = 64:
     a TMA box spans heads), and FLUX's dp = 128 instantiation: its joint
     attention at 1024^2 (24 heads), an 80-key tile with a ragged q block,
-    and ragged key and q tails beyond it: the kernel, as
+    and ragged key and q tails beyond it; SD3's 4250 joint keys and
+    PixArt's d = 72 (a partial 16-column box of dp = 80): the kernel, as
     test_flash_kernel_matches_plain holds it. Beside K1 in FLUX's blocks,
     `Linear`'s float8 and int8 products on the card against its CPU
-    branch, at FLUX's width and at 7 rows (`_int_mm`'s padding)."""
+    branch, at FLUX's width and at 7 rows (`_int_mm`'s padding), and SD3's
+    int8 patch embedding at its 1024^2 latent and at 4x4 (padded rows)."""
     cases = [(2, nq, nk, h, d) for (nq, nk, d), h in zip(
         REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24))] + [
         (1, 4352, 4352, 24, 128), (1, 4352, 4100, 24, 128),
-        (2, 4352, 4352, 24, 128), (2, 100, 77, 4, 128), (1, 300, 130, 3, 128)]
+        (2, 4352, 4352, 24, 128), (2, 100, 77, 4, 128), (1, 300, 130, 3, 128),
+        (1, 300, 4250, 4, 64), (1, 256, 256, 2, 72), (1, 300, 120, 2, 72)]
     for b, nq, nk, h, d in cases:
         before = flash_attention.launches
         _check_flash_kernel(cuda, b, nq, nk, h, d)
@@ -664,6 +694,8 @@ def test_flash_kernel_at_refiner_shapes(cuda):
     for kind in ("float8_e4m3", "float8_e5m2", "int8"):
         for rows in (300, 7):
             _check_8bit_linear(cuda, rows, 3072, 3072, kind)
+    for b, h, w in ((2, 128, 128), (1, 4, 4)):
+        _check_int8_patch_embedding(cuda, b, h, w)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import base64
 import dataclasses
 import functools
 import json
+import os
 import time
 import urllib.request
 
@@ -367,8 +368,8 @@ def test_loader_layouts_8bit_storage_and_refusals(tmp_path, monkeypatch):
     gen = svd_factory(Preferences(), device="cpu")()
     job = {"init_img": str(init), "ckpt": paths["published"]}
     for bad, err in ((dict(interpolation_frames=1), NotImplementedError),
-                     (dict(make_mp4=True), NotImplementedError),
-                     (dict(output_mp4="v.mp4"), NotImplementedError),
+                     (dict(interpolation_frames=2, make_mp4=True),
+                      NotImplementedError),
                      (dict(unet_quantize="int8"), NotImplementedError),
                      (dict(deep_cache=3), NotImplementedError),
                      (dict(init_img=str(tmp_path / "none.png")),
@@ -388,7 +389,8 @@ def test_http_job_as_jax_svd_factory(tmp_path, monkeypatch):
     resident key equal to JAX's; each served frame is the port pipeline's
     own frame for the job (test_sample_matches_jax holds those to
     JAX's) with JAX's generation parameters ({"frame": i, **the job's
-    scalars}) and the mode and model type the server mirrors in."""
+    scalars}) and the mode and model type the server mirrors in. The job
+    sets make_mp4 and output_mp4 at 0 FILM passes, which JAX ignores."""
     _tiny_loaders(monkeypatch)
     with torch.random.fork_rng():
         torch.manual_seed(3)
@@ -399,9 +401,13 @@ def test_http_job_as_jax_svd_factory(tmp_path, monkeypatch):
     init = tmp_path / "init.png"
     rgb = np.random.RandomState(4).randint(0, 256, (RES, RES, 3), np.uint8)
     init.write_bytes(encode_png(rgb))
+    # make_mp4 and output_mp4 act only after FILM passes in JAX: with
+    # interpolation_frames 0 both backends serve the frames
     job = {"init_img": str(init), "ckpt": paths["published"], "num_frames": T,
            "sampling_steps": STEPS, "seed": SEED, "cond_aug": 0.05,
-           "fps_id": 5, "motion_bucket_id": 100, "outdir": str(tmp_path)}
+           "fps_id": 5, "motion_bucket_id": 100, "outdir": str(tmp_path),
+           "interpolation_frames": 0, "make_mp4": True,
+           "output_mp4": str(tmp_path / "v.mp4")}
     seen = {}
 
     class Stub:
@@ -472,3 +478,46 @@ def test_http_job_as_jax_svd_factory(tmp_path, monkeypatch):
         np.testing.assert_array_equal(rgb, np.round(want[i] * 255))
         assert json.loads(m["generation_parameters"]) == {
             **jm, "mode": "image_to_video", "generator_model_type": "SVD"}
+
+
+# a job's FILM and model-file options -> the same load_svd_bundle call in
+# both packages, or the port's refusal before any load
+SVD_JOBS = {
+    "make-mp4-without-film": dict(make_mp4=True),
+    "output-mp4-without-film": dict(output_mp4="v.mp4"),
+    "model-from-preferences": dict(ckpt="", svd_model="svd_xt.safetensors"),
+    "film-passes-refused": dict(interpolation_frames=2, make_mp4=True),
+}
+
+
+@pytest.mark.parametrize("case", SVD_JOBS)
+def test_svd_factory_loads_as_jax(case, tmp_path, monkeypatch):
+    """svd_factory against JAX's on a job's FILM and model-file options,
+    both loaders recorded (nothing loaded): at 0 FILM passes make_mp4 and
+    output_mp4 change nothing, and both load the same file with the same
+    arguments (svd_model under the preferences' svd_model_path when the
+    job names no ckpt); FILM passes raise NotImplementedError before any
+    load, where JAX loads and interpolates."""
+    from tests.test_torch_sd3 import record_loaders
+
+    init = tmp_path / "init.png"
+    init.write_bytes(encode_png(np.zeros((RES, RES, 3), np.uint8)))
+    job = {"init_img": str(init), "ckpt": str(tmp_path / "svd.safetensors"),
+           "num_frames": T, **SVD_JOBS[case]}
+    seen = record_loaders(monkeypatch, "load_svd_bundle")
+    with pytest.raises(LookupError):
+        JBACKENDS.svd_factory(JPrefs(svd_model_path=str(tmp_path)))(
+            dict(job), lambda m: None, None)
+    port = svd_factory(Preferences(svd_model_path=str(tmp_path)),
+                       device="cpu")()
+    if job.get("interpolation_frames"):
+        with pytest.raises(NotImplementedError, match="interpolation_frames 2"):
+            port(dict(job), lambda m: None, None)
+        assert "port" not in seen
+        return
+    with pytest.raises(LookupError):
+        port(dict(job), lambda m: None, None)
+    (j_args, j_kw), (t_args, t_kw) = seen["jax"], seen["port"]
+    ckpt = job["ckpt"] or os.path.join(str(tmp_path), job["svd_model"])
+    assert t_args == j_args == (ckpt,)
+    assert {k: v for k, v in t_kw.items() if k != "device"} == j_kw
