@@ -27,7 +27,10 @@ is nonzero and no final line is printed:
 7. serving: the port's HTTP server with a full-width SD1.5 bundle of
    seeded random bf16 weights answers 2 txt2img requests (512^2, Euler A,
    20 steps, CFG 7.5, batch 4); the kernels' launch counts of that run
-   must equal the counts derived from the model code;
+   must equal the counts derived from the model code; then one request
+   (DELIVERY_STEPS steps) inline and the same with result_delivery "path":
+   GET /v1/images/file must return the inline PNG's bytes for each image
+   and /v1/images/meta its parameters, a path outside the app root 404;
 8. modes: the server with that bundle and a full-width 9-channel
    inpainting bundle answers one request of each: img2img from an
    uploaded 512^2 PNG (DPM++ 2M, strength 0.75, batch 2), inpainting with
@@ -176,20 +179,38 @@ is nonzero and no final line is printed:
    "float8_e4m3" after the bf16 requests. The caption is zeros of (120,
    4096), as in JAX (no T5). The same checks, with two K1 calls per block
    a step (self-attention, cross-attention over the 120 caption tokens);
-17. new paths' shapes: hooks record the shape of every K1 and K2 call of
+17. hunyuan: Hunyuan-DiT v1.2 at 1024^2, 25 steps of "DPM++ 2M" (the
+   served default), CFG 5.0, batch 1 (the DiT at batch 2), from seeded
+   random fp16 component files under build/hunyuan/ as a hunyuan_dir
+   holds them (7.3 GB): the transformer in diffusers' HunyuanDiT2DModel
+   layout (40 blocks of 1408, 16 heads of 88), the SDXL VAE in diffusers'
+   AutoencoderKL layout, the Chinese-CLIP BertModel in HF's layout with a
+   47,020-line vocab.txt, the mT5-XL encoder in HF's T5EncoderModel layout
+   and a synthetic spiece.model, so both text branches run. The --config
+   server serves jobs naming hunyuan_dir as sd3 does, in bf16, then with
+   dit_quantize "float8_e4m3" and "int8". The same checks, with two K1
+   calls per block a step at d = 88 (self-attention over 4096 tokens,
+   cross-attention over the 333 text tokens) and one at d = 256 (the
+   attention pool, one query over 257 mT5 tokens), counted by
+   instantiation; both text contexts finite and not zeros; the int8 patch
+   embedding left in bf16 (below the min size);
+18. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
-   sd15_full, of sdxl's and sdxl_modes' requests, of flux's, svd's, sd3's
-   and pixart's (the recorded calls
+   sd15_full, of sdxl's and sdxl_modes' requests, of flux's, svd's, sd3's,
+   pixart's and hunyuan's (the recorded calls
    must add up to the launch counts), and the same checks as 4 and 5 run
    at every shape the main path's rows do not hold (the safety checker's
    d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
    refiner's at 12 and 24 among them, FLUX's d = 128, SVD's batch-28
    calls over 9216 tokens and over one key, SD3's 4250 keys, PixArt's
-   d = 72), and at K2's H*W % 8 != 0 cases
+   d = 72, Hunyuan-DiT's d = 88 and its pool's d = 256 at one q row), and
+   at K2's H*W % 8 != 0 cases
    (K2_ANY_HW); each row lists the paths that run its shape with their
    calls per request;
-18. the kernels line (per-request totals over the main path's shapes, as
-   before, and per new path), then the contract's last line.
+19. the kernels line (per-request totals over the main path's shapes, as
+   before, and per new path; K1's dp = 96 and dp = 256 instantiations in
+   entries of their own, per Hunyuan-DiT request), then the contract's
+   last line.
 Each phase has a time limit (LIMITS_S): a hung kernel ends the run in its
 phase with exit code 1.
 Needs the repository (it imports cremage_tpu_torch), one card, and
@@ -219,6 +240,8 @@ STEPS, BATCH, REQUESTS, RES = 20, 4, 2, 512
 # img2img or hires pass at strength 0.75) and of the samplers phase
 # (widths are the full model's)
 MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
+# path delivery's check: one request inline and once more by path
+DELIVERY_STEPS = 4
 # each phase's time limit, in s. A hang, say a kernel waiting on a wrong
 # barrier phase, ends the run in its phase with a traceback and exit code
 # 1 instead of using up the call. The K1 limit starts with the shapes
@@ -226,7 +249,7 @@ MODE_STEPS, STRENGTH, SAMPLER_STEPS = 8, 0.75, 4
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=300, sd15_full=480,
                 sdxl=600, sdxl_modes=720, flux=900, svd=600, sd3=420,
-                pixart=300, new_shapes=600)
+                pixart=300, hunyuan=480, new_shapes=600)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -353,13 +376,14 @@ def ptxas_summary(log: str) -> dict:
 @contextlib.contextmanager
 def recording(*models):
     """While open, count the K1 and K2 calls of the models (bundles: their
-    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX, SD3 or
-    PixArt bundle's transformer and VAE; or modules, such as the safety
-    checker)
+    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX, SD3, PixArt
+    or Hunyuan-DiT bundle's transformer and VAE; or modules, such as the
+    safety checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.clip import CLIPAttention
     from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
+    from cremage_tpu_torch.models.hunyuan import AttentionPool, HunyuanBlock
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.mmdit import JointBlock
     from cremage_tpu_torch.models.open_clip import _Attention
@@ -403,7 +427,7 @@ def recording(*models):
         add(attn, (x.shape[0], n, n, cfg.num_heads,
                    cfg.hidden_size // cfg.num_heads))
 
-    def on_pixart(mod, args):      # PixArt: self- and cross-attention
+    def on_pixart(mod, args):      # PixArt, Hunyuan: self- and cross-attn
         x, y = args[:2]
         b, n = x.shape[:2]
         cfg = mod.cfg
@@ -411,12 +435,17 @@ def recording(*models):
         add(attn, (b, n, n, h, d))
         add(attn, (b, n, y.shape[1], h, d))
 
+    def on_pool(mod, args):        # Hunyuan-DiT's pool: one query row
+        b, lm, w = args[0].shape
+        ph = mod.cfg.pooler_heads
+        add(attn, (b, 1, lm + 1, ph, w // ph))
+
     hooks = []
     for model in models:
         if hasattr(model, "unet"):
             parts = [model.unet, model.vae, getattr(model, "controlnet", None),
                      getattr(model, "clip_vision", None)]
-        elif hasattr(model, "vae"):        # a FLUX, SD3 or PixArt bundle
+        elif hasattr(model, "vae"):        # a FLUX, SD3, PixArt or Hunyuan one
             parts = [getattr(model, a, None) for a in ("model", "mmdit", "dit")
                      ] + [model.vae]
         else:
@@ -435,8 +464,10 @@ def recording(*models):
                 hooks.append(m.register_forward_pre_hook(on_flux))
             elif isinstance(m, JointBlock):
                 hooks.append(m.register_forward_pre_hook(on_joint))
-            elif isinstance(m, PixArtBlock):
+            elif isinstance(m, (PixArtBlock, HunyuanBlock)):
                 hooks.append(m.register_forward_pre_hook(on_pixart))
+            elif isinstance(m, AttentionPool):
+                hooks.append(m.register_forward_pre_hook(on_pool))
     try:
         yield attn, gn, weight
     finally:
@@ -716,6 +747,18 @@ class Client:
             headers={"Content-Type": "application/json"})
         return json.loads(urllib.request.urlopen(req, timeout=60).read())
 
+    def raw(self, path: str):
+        """GET `path` -> (status, body bytes, content type); an HTTP error
+        status is returned, not raised."""
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(self.url + path, timeout=60) as r:
+                return r.status, r.read(), r.headers["Content-Type"]
+        except urllib.error.HTTPError as e:
+            return e.code, e.read(), e.headers["Content-Type"]
+
     def generate(self, mode: str, params: dict, model_type: str = "SD 1.5"):
         self.call("/v1/generate", {"generator_model_type": model_type,
                                    "mode": mode, "parameters": params})
@@ -757,6 +800,7 @@ def reset_counts():
     from cremage_tpu_torch.ops.groupnorm import group_norm_silu
 
     flash_attention.launches = 0
+    flash_attention.launches_by_dp = {}
     group_norm_silu.launches = 0
 
 
@@ -765,6 +809,13 @@ def read_counts():
     from cremage_tpu_torch.ops.groupnorm import group_norm_silu
 
     return flash_attention.launches, group_norm_silu.launches
+
+
+def read_dp_counts() -> dict:
+    """K1's launches by instantiation (padded head dim) since reset_counts."""
+    from cremage_tpu_torch.ops.flash_attention import flash_attention
+
+    return dict(flash_attention.launches_by_dp)
 
 
 def serve(bundle, dev, card):
@@ -804,6 +855,8 @@ def serve(bundle, dev, card):
         msgs = client.drain(REQUESTS)
         wall = time.perf_counter() - t0
         k1, k2 = read_counts()
+        hook.remove()                     # the timed requests' decodes only
+        delivery = path_delivery(client, params(7, DELIVERY_STEPS))
     finally:
         hook.remove()
         srv.stop()
@@ -815,6 +868,7 @@ def serve(bundle, dev, card):
         pixels.append(rgb)
     stds = [float(np.std(p.astype(np.float32))) for p in pixels]
     emit(dict(phase="serving", card=card, requests=REQUESTS,
+              path_delivery=delivery,
               images=len(pixels), decodes_finite=decoded,
               pixel_std=stds, seconds=wall,
               seconds_per_request=wall / REQUESTS,
@@ -829,6 +883,49 @@ def serve(bundle, dev, card):
         raise AssertionError(f"kernel launches {(k1, k2)} != derived "
                              f"{(want_k1, want_k2)}")
     return {"flash_attention": k1, "group_norm_silu": k2}
+
+
+def path_delivery(client, params):
+    """The same SD1.5 request inline and with result_delivery "path": each
+    delivered file under the app root's outputs, GET /v1/images/file
+    returns the inline PNG's bytes as image/png, /v1/images/meta its
+    generation parameters; a path outside the root is 404. The files are
+    removed. -> a row."""
+    from urllib.parse import quote
+
+    from cremage_tpu_torch.app import dirs
+
+    client.generate("text_to_image", params)
+    inline = [base64.b64decode(m["image_b64"]) for m in client.drain(1)
+              if isinstance(m, dict) and "image_b64" in m]
+    client.generate("text_to_image", dict(params, result_delivery="path"))
+    sent = [m for m in client.drain(1)
+            if isinstance(m, dict) and "image_path" in m]
+    outputs = os.path.join(os.path.realpath(dirs.app_root()), "outputs")
+    row = dict(images=len(sent), outputs=outputs, same_bytes=[], meta=[])
+    try:
+        if len(sent) != len(inline) or not inline:
+            raise AssertionError(f"path delivery: {len(sent)} paths, "
+                                 f"{len(inline)} inline images")
+        for m, png in zip(sent, inline):
+            if os.path.dirname(os.path.realpath(m["image_path"])) != outputs:
+                raise AssertionError(f"path delivery: {m['image_path']} is "
+                                     f"not under {outputs}")
+            q = quote(m["image_path"])
+            status, body, ctype = client.raw(f"/v1/images/file?path={q}")
+            row["same_bytes"].append(status == 200 and body == png
+                                     and ctype == "image/png")
+            row["meta"].append(client.call(f"/v1/images/meta?path={q}") == {
+                "generation_data": json.loads(m["generation_parameters"])})
+        row["outside_root"] = client.raw(
+            f"/v1/images/file?path={quote(str(REPO / 'chip_smoke.py'))}")[0]
+    finally:
+        for m in sent:
+            os.remove(m["image_path"])
+    if not (all(row["same_bytes"]) and all(row["meta"])
+            and row["outside_root"] == 404):
+        raise AssertionError(f"path delivery: {row}")
+    return row
 
 
 def test_image(res: int):
@@ -2850,6 +2947,10 @@ SD3_FILE_GB = 14            # free disk the 5.9 GB file needs, with room
 PIXART_RES, PIXART_STEPS, PIXART_REQUESTS, PIXART_CFG = 1024, 20, 2, 4.5
 PIXART_SAMPLER = "DPM++ 2M"  # diffusers' PixArtSigmaPipeline defaults
 PIXART_FILES_GB = 4
+HUNYUAN_RES, HUNYUAN_STEPS, HUNYUAN_REQUESTS, HUNYUAN_CFG = 1024, 25, 2, 5.0
+HUNYUAN_SAMPLER = "DPM++ 2M"   # the served default; CFG diffusers' default
+HUNYUAN_FILES_GB = 16          # free disk the 7.3 GB of files need, with room
+HUNYUAN_VOCAB = 47020          # the Chinese-CLIP BertModel's vocab.txt lines
 DIT_PROMPT = "a photograph of an astronaut riding a horse on the moon"
 
 
@@ -3001,10 +3102,140 @@ def write_pixart_files(root: Path, dev):
     return {k: str(v) for k, v in paths.items()}, seconds
 
 
+def hunyuan_configs():
+    """Hunyuan-DiT v1.2's published widths and depths: the DiT, the
+    Chinese-CLIP BertModel, the mT5-XL encoder and the SDXL VAE, in
+    bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.bert import hunyuan_clip_config
+    from cremage_tpu_torch.models.hunyuan import hunyuan_dit_config
+    from cremage_tpu_torch.models.t5 import mt5_xl_config
+    from cremage_tpu_torch.models.vae import sdxl_vae_config
+
+    bf16 = torch.bfloat16
+    return dict(dit=hunyuan_dit_config(dtype=bf16),
+                bert=hunyuan_clip_config(dtype=bf16),
+                mt5=mt5_xl_config(dtype=bf16), vae=sdxl_vae_config(dtype=bf16))
+
+
+def diffusers_hunyuan_key(key: str):
+    """The diffusers HunyuanDiT2DModel keys a key of the port's HunyuanDiT
+    comes from, with the rows each holds, as diffusers_pixart_key: the
+    inverse of io/diffusers_keys.py `hunyuan_from_diffusers`."""
+    from cremage_tpu_torch.io import diffusers_keys as DK
+
+    if not key.startswith("blocks."):
+        theirs, ours = next(p for p in DK._HY_TOP if key.startswith(p[1]))
+        return [(theirs + key[len(ours):], 0, 1)]
+    i, rest = key[len("blocks."):].split(".", 1)
+    base, kind = f"blocks.{i}.", rest.rsplit(".", 1)[-1]
+    if rest.startswith(("attn1_qkv.", "attn2_kv.")):
+        names = "qkv" if rest.startswith("attn1") else "kv"
+        return [(f"{base}attn{rest[4]}.to_{c}.{kind}", j, len(names))
+                for j, c in enumerate(names)]
+    theirs, ours = next(p for p in DK._HY_BLOCK if rest.startswith(p[1]))
+    return [(base + theirs + rest[len(ours):], 0, 1)]
+
+
+def diffusers_vae_key(key: str, shape):
+    """(diffusers AutoencoderKL key, shape) of a key of the port's (CompVis)
+    VAE, the inverse of io/diffusers_keys.py `sd_vae_from_diffusers` at 4
+    levels: the mid attention's 1x1 convolutions are linear layers
+    there."""
+    sub = [(r"^(encoder|decoder)\.norm_out\.", r"\1.conv_norm_out."),
+           (r"^(encoder|decoder)\.mid\.block_1\.", r"\1.mid_block.resnets.0."),
+           (r"^(encoder|decoder)\.mid\.block_2\.", r"\1.mid_block.resnets.1."),
+           (r"^(encoder|decoder)\.mid\.attn_1\.norm\.",
+            r"\1.mid_block.attentions.0.group_norm."),
+           (r"^(encoder|decoder)\.mid\.attn_1\.(q|k|v)\.",
+            r"\1.mid_block.attentions.0.to_\2."),
+           (r"^(encoder|decoder)\.mid\.attn_1\.proj_out\.",
+            r"\1.mid_block.attentions.0.to_out.0."),
+           (r"^encoder\.down\.(\d)\.block\.", r"encoder.down_blocks.\1.resnets."),
+           (r"^encoder\.down\.(\d)\.downsample\.",
+            r"encoder.down_blocks.\1.downsamplers.0."),
+           (r"^decoder\.up\.(\d)\.block\.", r"decoder.up_blocks.@\1.resnets."),
+           (r"^decoder\.up\.(\d)\.upsample\.",
+            r"decoder.up_blocks.@\1.upsamplers.0."),
+           (r"\.nin_shortcut\.", ".conv_shortcut.")]
+    name = key
+    for pat, to in sub:
+        name = re.sub(pat, to, name)
+    name = re.sub(r"@(\d)", lambda m: str(3 - int(m.group(1))), name)
+    if ".attentions.0.to_" in name and name.endswith("weight"):
+        shape = tuple(shape[:2])
+    return name, tuple(shape)
+
+
+def write_hunyuan_files(root: Path, dev, cfgs: dict):
+    """Hunyuan-DiT's component files as a hunyuan_dir holds them, from
+    seeded random fp16 tensors under `root`: transformer.safetensors
+    (diffusers' HunyuanDiT2DModel layout), vae.safetensors (the SDXL VAE in
+    diffusers' AutoencoderKL layout), clip.safetensors (HF's BertModel),
+    vocab.txt (the prompts' words, the rest of its HUNYUAN_VOCAB lines
+    unused), mt5.safetensors (HF's T5EncoderModel: the shared table and the
+    encoder, the tied embed_tokens stored once as HF saves it) and a
+    synthetic spiece.model; a config.yaml with no model (a Hunyuan-DiT job
+    names its files). Refuses to start without HUNYUAN_FILES_GB of free
+    disk. -> (paths, {file: seconds})."""
+    from cremage_tpu_torch.models.bert import BertModel
+    from cremage_tpu_torch.models.hunyuan import HunyuanDiT
+    from cremage_tpu_torch.models.t5 import T5Encoder
+    from cremage_tpu_torch.models.vae import AutoencoderKL
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < HUNYUAN_FILES_GB:
+        raise RuntimeError(f"hunyuan: {free:.1f} GB free under {root}, the "
+                           f"files need {HUNYUAN_FILES_GB} GB")
+    dit = {}
+    for k, shape in meta_shapes(HunyuanDiT, cfgs["dit"]).items():
+        for name, _, parts in diffusers_hunyuan_key(k):
+            dit[name] = (shape[0] // parts,) + shape[1:]
+    vae = dict(diffusers_vae_key(k, v) for k, v in
+               meta_shapes(AutoencoderKL, cfgs["vae"]).items())
+    mt5 = {("shared.weight" if k == "shared.weight" else
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias."
+            "weight" if k == "relative_attention_bias.weight" else
+            "encoder." + k): v
+           for k, v in meta_shapes(T5Encoder, cfgs["mt5"]).items()}
+    paths = {k: root / n for k, n in (
+        ("dit", "transformer.safetensors"), ("vae", "vae.safetensors"),
+        ("clip", "clip.safetensors"), ("vocab", "vocab.txt"),
+        ("mt5", "mt5.safetensors"), ("spiece", "spiece.model"),
+        ("config", "config.yaml"))}
+    words = sorted(set((DIT_PROMPT + " " + NEGATIVE).replace(",", " ").split()))
+    specials = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", ","]
+    lines = specials + words + [f"[unused{i}]" for i in range(
+        HUNYUAN_VOCAB - len(specials) - len(words))]
+    paths["vocab"].write_text("\n".join(lines) + "\n", encoding="utf-8")
+    paths["spiece"].write_bytes(spiece_model(words))
+    paths["config"].write_text("# Hunyuan-DiT jobs name their files\n")
+    seconds = {
+        "dit": write_seeded_safetensors(paths["dit"], dit, dev, 90, dtype="F16"),
+        "vae": write_seeded_safetensors(paths["vae"], vae, dev, 91, dtype="F16"),
+        "clip": write_seeded_safetensors(
+            paths["clip"], meta_shapes(BertModel, cfgs["bert"]), dev, 92,
+            dtype="F16"),
+        "mt5": write_seeded_safetensors(paths["mt5"], mt5, dev, 93,
+                                        tables=("shared.weight",),
+                                        dtype="F16")}
+    out = {k: str(v) for k, v in paths.items()}
+    out["dir"] = str(root)
+    return out, seconds
+
+
 def check_dit_weights(phase, bundle, paths, quantize):
-    """check_coded over an SD3 or PixArt bundle's models and their files."""
+    """check_coded over an SD3, PixArt or Hunyuan-DiT bundle's models and
+    their files."""
     from cremage_tpu_torch.io import checkpoint as CK
-    from cremage_tpu_torch.io.diffusers_keys import pixart_from_diffusers
+    from cremage_tpu_torch.io.diffusers_keys import (
+        hunyuan_from_diffusers, pixart_from_diffusers,
+    )
+    from cremage_tpu_torch.pipelines.loader import (
+        bert_state_dict, standalone_vae_state_dict,
+    )
 
     if phase == "sd3":
         parts = CK.split_sd3(CK.load_safetensors(paths["ckpt"]))
@@ -3013,6 +3244,15 @@ def check_dit_weights(phase, bundle, paths, quantize):
                   "vae": (bundle.vae, parts[CK.PREFIX_VAE]),
                   "clip_l": (cond.clip_l, parts[CK.PREFIX_SD3_CLIP_L]),
                   "clip_g": (cond.open_clip, parts[CK.PREFIX_SD3_CLIP_G])}
+    elif phase == "hunyuan":
+        def load(key):
+            return CK.load_safetensors(paths[key])
+
+        groups = {"dit": (bundle.dit, hunyuan_from_diffusers(load("dit"))),
+                  "vae": (bundle.vae, standalone_vae_state_dict(load("vae"))),
+                  "bert": (bundle.text.bert, bert_state_dict(load("clip"))),
+                  "mt5": (bundle.text.mt5, CK.t5_encoder_state_dict(
+                      load("mt5")))}
     else:
         groups = {"dit": (bundle.dit, pixart_from_diffusers(
             CK.load_safetensors(paths["ckpt"]))),
@@ -3023,20 +3263,47 @@ def check_dit_weights(phase, bundle, paths, quantize):
 
 
 def dit_kernel_calls(bundle, steps: int):
-    """(K1, K2) launches of an SD3 or PixArt request from the module tree:
-    each of the `steps` evaluations (the [uc; c] batch in one call) runs
-    one K1 call per joint block (SD3) or two per block (PixArt's self- and
-    cross-attention), and the one decode the VAE decoder's attention and
-    GroupNorms (the text towers' causal attention takes the plain path)."""
+    """(K1, K2) launches of an SD3, PixArt or Hunyuan-DiT request from the
+    module tree: each of the `steps` evaluations (the [uc; c] batch in one
+    call) runs one K1 call per joint block (SD3), two per block (PixArt's
+    and Hunyuan-DiT's self- and cross-attention) and one per attention
+    pool (Hunyuan-DiT), and the one decode the VAE decoder's attention and
+    GroupNorms (the text towers' causal or masked attention and T5's
+    biased one take the plain path)."""
+    from cremage_tpu_torch.models.hunyuan import AttentionPool, HunyuanBlock
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.mmdit import JointBlock
     from cremage_tpu_torch.models.pixart import PixArtBlock
     from cremage_tpu_torch.models.vae import AttnBlock
 
     dit = getattr(bundle, "mmdit", None) or bundle.dit
-    per_eval = count(dit, JointBlock) + 2 * count(dit, PixArtBlock)
+    per_eval = (count(dit, JointBlock) + 2 * count(dit, PixArtBlock)
+                + 2 * count(dit, HunyuanBlock) + count(dit, AttentionPool))
     return (steps * per_eval + count(bundle.vae.decoder, AttnBlock),
             count(bundle.vae.decoder, GroupNorm))
+
+
+def hunyuan_dp_calls(bundle, steps: int) -> dict:
+    """K1 launches of a Hunyuan-DiT request by instantiation (padded head
+    dim): each evaluation the blocks' two calls (d = 88, dp 96, at full
+    width) and the pool's (d = 256), the decode the decoder's mid attention
+    (d = 512)."""
+    from cremage_tpu_torch.models.hunyuan import AttentionPool, HunyuanBlock
+    from cremage_tpu_torch.models.vae import AttnBlock
+
+    cfg, out = bundle.dit.cfg, {}
+
+    def add(d, n):
+        dp = -(-d // 16) * 16
+        out[dp] = out.get(dp, 0) + n
+
+    add(cfg.hidden_size // cfg.num_heads,
+        2 * steps * count(bundle.dit, HunyuanBlock))
+    add(cfg.mt5_dim // cfg.pooler_heads, steps * count(bundle.dit, AttentionPool))
+    for m in bundle.vae.decoder.modules():
+        if isinstance(m, AttnBlock):
+            add(m.q.weight.shape[0], 1)
+    return out
 
 
 def check_dit_blocks(phase, dit, dev):
@@ -3044,11 +3311,14 @@ def check_dit_blocks(phase, dit, dev):
     against the same weights in float32 through the plain versions, on
     the card, at the 1024^2 request's token counts: SD3's joint blocks
     (the last one's context stream pre-only) over [154; 4096] tokens,
-    PixArt's blocks over 4096 tokens and 120 caption tokens."""
+    PixArt's blocks over 4096 tokens and 120 caption tokens, Hunyuan-DiT's
+    over 4096 tokens, the 333 text tokens and the grid's RoPE table (the
+    last one with its long skip)."""
     import copy
 
     import torch
 
+    from cremage_tpu_torch.models.hunyuan import HunyuanBlock
     from cremage_tpu_torch.models.mmdit import JointBlock
 
     h = dit.cfg.hidden_size
@@ -3057,16 +3327,26 @@ def check_dit_blocks(phase, dit, dev):
     rows = []
     for name, blk in (("first", blocks[0]), ("last", blocks[-1])):
         x = torch.randn(1, 4096, h, device=dev, generator=g)
+        keep = ()                     # arguments that stay float32
         if isinstance(blk, JointBlock):
             args = (torch.randn(1, 154, h, device=dev, generator=g), x,
                     torch.randn(1, h, device=dev, generator=g))
+        elif isinstance(blk, HunyuanBlock):
+            args = (x, torch.randn(1, 333, blk.cfg.clip_dim, device=dev,
+                                   generator=g),
+                    torch.randn(1, h, device=dev, generator=g),
+                    dit.rope_table(64, 64, dev))
+            if hasattr(blk, "skip_linear"):
+                args += (torch.randn(1, 4096, h, device=dev, generator=g),)
+            keep = (3,)
         else:
             args = (x, torch.randn(1, 120, h, device=dev, generator=g),
                     0.1 * torch.randn(1, 6, h, device=dev, generator=g))
+            keep = (2,)
         ref = copy.deepcopy(blk).float()
         with torch.no_grad():
-            got = blk(*[a if a.shape[1:] == (6, h) else a.bfloat16()
-                        for a in args])
+            got = blk(*[a if i in keep else a.bfloat16()
+                        for i, a in enumerate(args)])
             with plain_kernels():
                 want = ref(*args)
         got = [t for t in (got if isinstance(got, tuple) else (got,))
@@ -3113,16 +3393,39 @@ def check_patch_gemm(mmdit, dev):
     return row
 
 
+def check_hunyuan_load(bundle, kind, dev, load):
+    """A Hunyuan-DiT bundle as served from hunyuan_dir: both text branches
+    loaded, the prompt's BERT and mT5 contexts finite and not zeros (their
+    RMS into `load`); under int8 the patch embedding (22,528 elements,
+    below the min size) still in the model's dtype, as JAX leaves it."""
+    import torch
+
+    text = bundle.text
+    if text.bert is None or text.mt5 is None:
+        raise AssertionError("hunyuan: a text branch did not load")
+    clip, mt5 = text.encode(DIT_PROMPT, dev)
+    load["text_rms"] = [float(t.pow(2).mean().sqrt()) for t in (clip, mt5)]
+    if not all(bool(torch.isfinite(t).all()) for t in (clip, mt5)) \
+            or min(load["text_rms"]) <= 0.0:
+        raise AssertionError(f"hunyuan: text contexts {load['text_rms']}")
+    patch = bundle.dit.x_embedder.proj.weight.dtype
+    load["patch_weight"] = str(patch)
+    if patch != bundle.dit.cfg.dtype:
+        raise AssertionError(f"hunyuan {kind}: patch embedding in {patch}")
+
+
 def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
               check_model=True):
-    """The phase sd3 or pixart: the family's files (write_sd3_file,
-    write_pixart_files) under `root`, its job (SD3-medium's published
-    settings, or diffusers' PixArtSigmaPipeline defaults) through the
-    --config server's /v1/generate: a warm-up of DIT_WARMUP_STEPS steps
-    that loads, `requests` timed requests, one more with the shape hooks;
-    then for each kind of `quantized` (dit_quantize) a warm-up that loads
-    anew and one timed request. -> (rows, {path: (K1 shapes, K2 shapes)},
-    launches of the timed requests)."""
+    """The phase sd3, pixart or hunyuan: the family's files
+    (write_sd3_file, write_pixart_files, write_hunyuan_files) under `root`,
+    its job (SD3-medium's published settings, diffusers'
+    PixArtSigmaPipeline defaults, or Hunyuan-DiT's served default sampler
+    from a hunyuan_dir) through the --config server's /v1/generate: a
+    warm-up of DIT_WARMUP_STEPS steps that loads, `requests` timed
+    requests, one more with the shape hooks; then for each kind of
+    `quantized` (dit_quantize) a warm-up that loads anew and one timed
+    request. -> (rows, {path: (K1 shapes, K2 shapes)}, launches of the
+    timed requests, their K1 launches by padded head dim)."""
     import gc
 
     import numpy as np
@@ -3136,13 +3439,19 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
         model_type = "SD 3"
         paths, seconds = write_sd3_file(root, dev, sd3_configs())
         job = {"scale": SD3_CFG}
+    elif phase == "hunyuan":
+        model_type = "Hunyuan DiT"
+        paths, seconds = write_hunyuan_files(root, dev, hunyuan_configs())
+        job = {"scale": HUNYUAN_CFG, "sampler": HUNYUAN_SAMPLER,
+               "hunyuan_dir": paths["dir"]}
     else:
         model_type = "PixArt-Sigma"
         paths, seconds = write_pixart_files(root, dev)
         job = {"scale": PIXART_CFG, "sampler": PIXART_SAMPLER,
                "vae_ckpt": paths["vae"]}
     rows = [dict(phase=f"{phase}_files", seconds=seconds,
-                 bytes={k: os.path.getsize(v) for k, v in paths.items()})]
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()
+                        if os.path.isfile(v)})]
     emit(rows[0])
     job.update(prompt=DIT_PROMPT, negative_prompt=NEGATIVE, H=res, W=res,
                sampling_steps=steps, n_samples=1, n_iter=1,
@@ -3179,6 +3488,8 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
                    for k, v in bundle.load_report["files"].items()})
         rows.append(check_dit_weights(phase, bundle, paths, kind))
         emit(rows[-1])
+        if phase == "hunyuan":
+            check_hunyuan_load(bundle, kind, dev, loads[kind])
         return bundle
 
     name = f"{phase} {res}^2"
@@ -3197,10 +3508,13 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
         served = served_images(client.drain(requests))
         wall = time.perf_counter() - t1
         launches, decodes = read_counts(), list(finite)
+        by_dp = read_dp_counts()
         runs[name] = run(dict(job, seed=12), record=True)
         hook.remove()
         shapes[name] = runs[name][4]
         want = [requests * k for k in dit_kernel_calls(bundle, steps)]
+        want_dp = ({dp: requests * n for dp, n in hunyuan_dp_calls(
+            bundle, steps).items()} if phase == "hunyuan" else by_dp)
         if check_model:
             rows.append(check_dit_blocks(
                 phase, getattr(bundle, "mmdit", None) or bundle.dit, dev))
@@ -3209,7 +3523,7 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
             params = dict(job, dit_quantize=kind, seed=13)
             bundle = load_row(kind, run(dict(params,
                                              sampling_steps=DIT_WARMUP_STEPS)))
-            if kind == "int8":
+            if kind == "int8" and phase == "sd3":
                 rows.append(check_patch_gemm(bundle.mmdit, dev))
             del bundle
             runs[f"{phase} {kind}"] = run(params)
@@ -3222,6 +3536,8 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
     stds = [float(np.std(p.astype(np.float32))) for p, _ in served]
     row = dict(phase=phase, card=card, steps=steps, res=res, batch=1,
                requests=requests, seconds=wall,
+               flash_attention_launches_by_dp=by_dp,
+               expected_flash_attention_by_dp=want_dp,
                seconds_per_request=wall / requests,
                images_per_s=len(served) / wall, loads=loads,
                images=[list(p.shape) for p, _ in served], pixel_std=stds,
@@ -3238,9 +3554,9 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
                              f"decodes {decodes}, pixel std {stds}")
     if "NotImplementedError" not in (refused or ""):
         raise AssertionError(f"{phase}: deep_cache not refused: {refused}")
-    if tuple(launches) != tuple(want):
-        raise AssertionError(f"{phase}: kernel launches {launches} != derived "
-                             f"{want}")
+    if tuple(launches) != tuple(want) or by_dp != want_dp:
+        raise AssertionError(f"{phase}: kernel launches {launches} (by dp "
+                             f"{by_dp}) != derived {want} ({want_dp})")
     rows.append(row)
     for rname, (sec, (k1, k2), imgs, fin, rec) in runs.items():
         r = dict(phase=f"{phase}_request", request=rname, card=card,
@@ -3264,7 +3580,7 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
                                  f"derived {want}, recorded "
                                  f"{r.get('recorded_calls')}")
         rows.append(r)
-    return rows, shapes, launches
+    return rows, shapes, launches, by_dp
 
 
 def full_configs():
@@ -3319,6 +3635,34 @@ def kernel_entry(name, source, replaces, rows, launches, path_launches):
                     **{k: total(k, p) for k in ("ms", "dispatch_ms", "plain_ms",
                                                 "bound_ms", "library_ms")})
                     for p in paths if p != "main"})
+
+
+def instantiation_entry(dp, rows, path, launches):
+    """One K1 instantiation (padded head dim `dp`) on `path`: its rows'
+    per-request totals over that path's shapes, as kernel_entry's, and the
+    launches one request of the path counted for it."""
+    mine = [r for r in rows if f"Plan<{dp}," in r["instantiation"]
+            and path in r["calls_by_path"]]
+    if not mine:
+        raise AssertionError(f"no K1 row at dp = {dp} on {path}")
+
+    def total(key):
+        return sum(r[key] * r["calls_by_path"][path] for r in mine)
+
+    return dict(name=f"flash_attention[dp={dp}]", route="cuda",
+                source="cremage_tpu_torch/csrc/flash_attention.cu",
+                replaces="cremage_tpu/ops/flash_attention.py:94",
+                launches=launches, path=path,
+                shapes=[r["shape"] for r in mine],
+                instantiations=sorted({r["instantiation"] for r in mine}),
+                max_abs_err=max(r["max_abs_err"] for r in mine),
+                max_err_over_tol=max(r["max_abs_err"] / r["tol"] for r in mine),
+                ms=total("ms"), dispatch_ms=total("dispatch_ms"),
+                plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+                bound_by="operations" if total("flops_ms") > total("bytes_ms")
+                else "bytes",
+                library_ms=total("library_ms"),
+                calls_per_request=sum(r["calls_by_path"][path] for r in mine))
 
 
 def main() -> int:
@@ -3412,16 +3756,18 @@ def main() -> int:
     finally:
         shutil.rmtree(svd_root, ignore_errors=True)
     paths.update(svd_paths)
-    dit_launches = {}
+    dit_launches, by_dp = {}, {}
     for phase, res, steps, requests, quantized in (
             ("sd3", SD3_RES, SD3_STEPS, SD3_REQUESTS, ("float8_e4m3", "int8")),
             ("pixart", PIXART_RES, PIXART_STEPS, PIXART_REQUESTS,
-             ("float8_e4m3",))):
+             ("float8_e4m3",)),
+            ("hunyuan", HUNYUAN_RES, HUNYUAN_STEPS, HUNYUAN_REQUESTS,
+             ("float8_e4m3", "int8"))):
         torch.cuda.empty_cache()
         watchdog(phase)
         dit_root = REPO / "build" / phase
         try:
-            _, dit_paths, dit_launches[phase] = dit_phase(
+            _, dit_paths, dit_launches[phase], by_dp[phase] = dit_phase(
                 phase, dev, card, dit_root, res, steps, requests, quantized)
         finally:
             shutil.rmtree(dit_root, ignore_errors=True)
@@ -3449,12 +3795,16 @@ def main() -> int:
                 **{p: n[key.startswith("group")]
                    for p, n in dit_launches.items()}}
 
+    all_k1 = list(k1_rows.values()) + list(new_k1.values())
+    hunyuan_path = f"hunyuan {HUNYUAN_RES}^2"
     emit({"kernels": [
         kernel_entry("flash_attention", "cremage_tpu_torch/csrc/flash_attention.cu",
-                     "cremage_tpu/ops/flash_attention.py:94",
-                     list(k1_rows.values()) + list(new_k1.values()),
+                     "cremage_tpu/ops/flash_attention.py:94", all_k1,
                      launches["flash_attention"],
                      by_phase("flash_attention_launches")),
+        *(instantiation_entry(dp, all_k1, hunyuan_path,
+                              by_dp["hunyuan"][dp] // HUNYUAN_REQUESTS)
+          for dp in (96, 256)),
         kernel_entry("group_norm_silu", "cremage_tpu_torch/csrc/groupnorm.cu",
                      "cremage_tpu/ops/groupnorm.py:66",
                      list(k2_rows.values()) + list(new_k2.values()),

@@ -44,6 +44,15 @@ pixart_sigma_ldm_model with JAX's parameters: SD3's `include_t5` (default
 True), `sd3_quantize_t5` and `dit_quantize`, PixArt's `vae_ckpt` and
 `dit_quantize`, and JAX's resident keys. Neither passes a T5 tokenizer,
 as in JAX, so both condition on a zero T5 context.
+
+`hunyuan_factory(prefs)` ("Hunyuan DiT") loads its bundle from the
+component files the job names, as JAX's backend picks them: `ckpt` or
+`dit_ckpt` (the diffusers transformer), `vae_ckpt`, `clip_ckpt` +
+`clip_vocab` (the BERT branch), `mt5_ckpt` + `mt5_spiece` (the mT5
+branch), each else the standard file name under `hunyuan_dir`
+(transformer.safetensors, vae.safetensors, clip.safetensors, vocab.txt,
+mt5.safetensors, spiece.model) where it exists; `dit_quantize`; JAX's
+resident key and its error when no transformer is found.
 """
 from __future__ import annotations
 
@@ -322,6 +331,69 @@ def pixart_factory(prefs: Preferences, device=None,
                 lambda: PixArtPipeline(load_pixart_bundle(
                     ckpt, vae_ckpt=opts.vae_ckpt or None,
                     quantize_dit=quantize, device=device), device=device))
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+HUNYUAN_FILES = (("dit_ckpt", "transformer.safetensors"),
+                 ("vae_ckpt", "vae.safetensors"),
+                 ("clip_ckpt", "clip.safetensors"), ("clip_vocab", "vocab.txt"),
+                 ("mt5_ckpt", "mt5.safetensors"), ("mt5_spiece", "spiece.model"))
+
+
+def hunyuan_files(params: dict) -> dict:
+    """{option: path or None} of a Hunyuan-DiT job's component files, as
+    JAX's backend picks them: each option's own path, else the standard
+    name under `hunyuan_dir` where that file exists; the job's `ckpt`
+    before `dit_ckpt`."""
+    base = params.get("hunyuan_dir")
+
+    def pick(key, name):
+        cand = os.path.join(base, name) if base else None
+        return params.get(key) or (cand if cand and os.path.exists(cand)
+                                   else None)
+
+    out = {key: pick(key, name) for key, name in HUNYUAN_FILES}
+    out["dit_ckpt"] = params.get("ckpt") or out["dit_ckpt"]
+    return out
+
+
+def hunyuan_factory(prefs: Preferences, device=None,
+                    resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for
+    Hunyuan-DiT txt2img jobs, loading the bundle from the component files
+    the job names (`hunyuan_files`)."""
+    from cremage_tpu_torch.pipelines.hunyuan import HunyuanPipeline
+    from cremage_tpu_torch.pipelines.loader import load_hunyuan_bundle
+    from cremage_tpu_torch.pipelines.sd3 import check_supported
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            f = hunyuan_files(params)
+            if not f["dit_ckpt"]:
+                raise FileNotFoundError(
+                    "Hunyuan-DiT needs the diffusers component files: "
+                    "pass ckpt/dit_ckpt (+ vae_ckpt, clip_ckpt + "
+                    "clip_vocab for the BertModel branch, mt5_ckpt + "
+                    "mt5_spiece for the mT5 branch), or hunyuan_dir "
+                    "with transformer/vae/clip/mt5.safetensors + "
+                    "vocab.txt + spiece.model "
+                    "(Tencent-Hunyuan/HunyuanDiT-Diffusers)")
+            check_supported(opts)       # before a model is loaded for it
+            quantize = params.get("dit_quantize") or None
+            key = ("hunyuan",) + tuple(f[k] for k, _ in HUNYUAN_FILES) + (
+                quantize,)
+            pipe = resident.get(key, lambda: HunyuanPipeline(load_hunyuan_bundle(
+                f["dit_ckpt"], vae_ckpt=f["vae_ckpt"], clip_ckpt=f["clip_ckpt"],
+                clip_vocab=f["clip_vocab"], mt5_ckpt=f["mt5_ckpt"],
+                mt5_tokenize=f["mt5_spiece"], quantize_dit=quantize,
+                device=device), device=device))
             pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
         generate.resident = resident
         return generate

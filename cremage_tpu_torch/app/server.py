@@ -8,15 +8,23 @@ EngineWorker with the same JSON contract:
   GET  /v1/meta       the model types, modes and samplers served
   POST /v1/upload     {"image": b64 PNG} -> {"path": staged file}, the path
                       a job's init_img / mask_img names
+  GET  /v1/images/file?path=P   the bytes of the file P under the app root
+                      (image/png, or video/mp4 for .mp4): what a job with
+                      result_delivery "path" wrote (its result message
+                      names P as image_path)
+  GET  /v1/images/meta?path=P   {"generation_data": the PNG's parameters}
+Both file routes serve only files inside the app root (~/.cremage_tpu,
+app/dirs.py; realpath checked): any other path is 404.
 
 Run `python -m cremage_tpu_torch.app.server --config config.yaml --port N`
-to serve SD1.5, SDXL, FLUX.1-schnell and SVD on the GPU from the checkpoint
-files that the config (the JAX package's config.yaml: ldm_model_path /
-ldm_model, ldm_inpaint_model, embedding_path; sdxl_ldm_model_path /
-sdxl_ldm_model, sdxl_ldm_inpaint_model, sdxl_embedding_path) and each job
-(ckpt, vae_ckpt, refiner_ckpt, lora_models, control_net; FLUX's clip_ckpt,
-t5_ckpt; SVD's ckpt or svd_model under svd_model_path) name
-(app/backends.py); one model of any family stays
+to serve SD1.5, SDXL, FLUX.1-schnell, SVD, SD3, PixArt-Σ and Hunyuan-DiT on
+the GPU from the checkpoint files that the config (the JAX package's
+config.yaml: ldm_model_path / ldm_model, ldm_inpaint_model, embedding_path;
+sdxl_ldm_model_path / sdxl_ldm_model, sdxl_ldm_inpaint_model,
+sdxl_embedding_path) and each job (ckpt, vae_ckpt, refiner_ckpt,
+lora_models, control_net; FLUX's clip_ckpt, t5_ckpt; SVD's ckpt or
+svd_model under svd_model_path; Hunyuan-DiT's component files or
+hunyuan_dir) name (app/backends.py); one model of any family stays
 resident. $SAFETY_CHECKER_PATH names the image safety checker's weights.
 `--deny-term` adds a term to the prompt gate's deny list. For smoke runs
 only, `--random-weights --seed N [--inpaint]` serves SD1.5 bundles of
@@ -34,16 +42,19 @@ import threading
 import uuid
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
 from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
-    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_PIXART_SIGMA, GMT_SD_1_5,
-    GMT_SD_3, GMT_SDXL, GMT_SVD, GenerationOptions, MODE_INPAINTING,
+    GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_HUNYUAN_DIT,
+    GMT_PIXART_SIGMA, GMT_SD_1_5, GMT_SD_3, GMT_SDXL, GMT_SVD,
+    GenerationOptions, MODE_INPAINTING,
 )
+from cremage_tpu_torch.io.metadata import read_generation_data
 from cremage_tpu_torch.io.png import decode_png, encode_png, read_png
 
 logger = logging.getLogger(__name__)
@@ -124,11 +135,32 @@ def _stage_upload(data: str, directory: str) -> str:
     return path
 
 
+class RawReply(NamedTuple):
+    """A reply that is a file's bytes, not JSON."""
+    data: bytes
+    content_type: str
+
+
+def library_file(query: str) -> Optional[str]:
+    """The real path of the query's `path` where it names a file inside the
+    app root, else None (the JAX server's check)."""
+    p = (parse_qs(query).get("path") or [""])[0]
+    root = os.path.realpath(dirs.first_init())
+    rp = os.path.realpath(p)
+    if not rp.startswith(root + os.sep) or not os.path.isfile(rp):
+        return None
+    return rp
+
+
 class ApiServer:
     def __init__(self, worker: Optional[EngineWorker] = None,
                  host: str = "127.0.0.1", port: int = 8787,
                  upload_dir: Optional[str] = None):
         self.worker = worker or EngineWorker()
+        if self.worker.save_root is None:
+            # path delivery: a job that asks for it has its PNGs written
+            # under the app root's outputs, as the JAX server sets it up
+            self.worker.save_root = dirs.first_init()
         self.host = host
         self.port = port
         self.upload_dir = upload_dir
@@ -137,6 +169,17 @@ class ApiServer:
         self._counter_lock = threading.Lock()
 
     def handle(self, method: str, path: str, body: Dict[str, Any]):
+        url = urlparse(path)
+        if method == "GET" and url.path in ("/v1/images/file",
+                                            "/v1/images/meta"):
+            rp = library_file(url.query)
+            if rp is None:
+                return None
+            if url.path == "/v1/images/meta":
+                return {"generation_data": read_generation_data(rp)}
+            with open(rp, "rb") as f:
+                return RawReply(f.read(), "video/mp4" if rp.lower().endswith(
+                    ".mp4") else "image/png")
         if path == "/v1/meta":
             from cremage_tpu_torch.pipelines.sd15 import (
                 EXTRA_SAMPLERS, MODES, SAMPLER_MENU,
@@ -146,10 +189,11 @@ class ApiServer:
             # SDXL and SVD run the sgm menu, SD1.5 the k-diffusion/DDIM
             # names, as the JAX server lists them; both run the extra
             # samplers. FLUX and SD3 (flow Euler) take the k-diffusion
-            # names and ignore them, PixArt runs them, as in the JAX server
+            # names and ignore them, PixArt and Hunyuan-DiT run them, as in
+            # the JAX server
             return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_SD_3,
-                                    GMT_PIXART_SIGMA, GMT_FLUX_1_SCHNELL,
-                                    GMT_SVD],
+                                    GMT_PIXART_SIGMA, GMT_HUNYUAN_DIT,
+                                    GMT_FLUX_1_SCHNELL, GMT_SVD],
                     "modes": list(MODES), "samplers": list(SAMPLER_MENU),
                     "extra_samplers": list(EXTRA_SAMPLERS),
                     "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
@@ -157,7 +201,8 @@ class ApiServer:
                                          GMT_FLUX_1_SCHNELL: list(SAMPLER_MENU),
                                          GMT_SVD: list(SGM_SAMPLER_NAMES),
                                          GMT_SD_3: list(SAMPLER_MENU),
-                                         GMT_PIXART_SIGMA: list(SAMPLER_MENU)}}
+                                         GMT_PIXART_SIGMA: list(SAMPLER_MENU),
+                                         GMT_HUNYUAN_DIT: list(SAMPLER_MENU)}}
         if path == "/v1/upload" and method == "POST":
             if not isinstance(body, dict) or "image" not in body:
                 raise BadRequest("body must be {\"image\": <b64 PNG>}")
@@ -219,9 +264,12 @@ class ApiServer:
                 logger.debug(fmt, *args)
 
             def _reply(self, code, payload):
-                data = json.dumps(payload).encode()
+                if isinstance(payload, RawReply):
+                    data, ctype = payload
+                else:
+                    data, ctype = json.dumps(payload).encode(), "application/json"
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
@@ -347,8 +395,8 @@ def build_server(argv=None) -> ApiServer:
         deny_terms=args.deny_term) if args.deny_term else None)
     if args.config:
         from cremage_tpu_torch.app.backends import (
-            ResidentInstance, flux_factory, pixart_factory, sd3_factory,
-            sd15_factory, sdxl_factory, svd_factory,
+            ResidentInstance, flux_factory, hunyuan_factory, pixart_factory,
+            sd3_factory, sd15_factory, sdxl_factory, svd_factory,
         )
         from cremage_tpu_torch.core.config import load_preferences
 
@@ -364,6 +412,8 @@ def build_server(argv=None) -> ApiServer:
         worker.register_backend(GMT_SD_3, sd3_factory(prefs,
                                                       resident=resident))
         worker.register_backend(GMT_PIXART_SIGMA, pixart_factory(
+            prefs, resident=resident))
+        worker.register_backend(GMT_HUNYUAN_DIT, hunyuan_factory(
             prefs, resident=resident))
     else:
         from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle

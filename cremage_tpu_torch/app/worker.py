@@ -5,15 +5,20 @@ Same message protocol as the JAX package:
   "mode": ..., "parameters": {...}};
 - the status channel carries str progress messages,
   {"image": png_bytes, "generation_parameters": json_str} results, and one
-  terminal {"job_done": {"ok": bool, "error": str|None}} per job.
+  terminal {"job_done": {"ok": bool, "error": str|None}} per job;
+- a job whose parameters ask for `result_delivery: "path"` on a worker
+  with a `save_root` (the server sets the app root, app/dirs.py
+  `first_init`) has each PNG written under `save_root`/outputs instead,
+  and its result message is {"image_path": path, "generation_parameters":
+  json_str}; any other delivery is inline.
 
 One worker thread drains the queue into the registered backends; PNG
-encoding runs on a one-thread pool so the device starts the next batch
-while the previous one compresses, and results post in generation order. With a `text_safety` checker
-(services/safety.py), an inference job whose prompt it blocks never
-reaches the queue: its only message is a failed job_done, as in the JAX
-worker. Request coalescing and path delivery of results are not ported
-yet.
+encoding (and the file's write) runs on a one-thread pool so the device
+starts the next batch while the previous one compresses, and results post
+in generation order. With a `text_safety` checker (services/safety.py), an
+inference job whose prompt it blocks never reaches the queue: its only
+message is a failed job_done, as in the JAX worker. Request coalescing is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Optional
 
+from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.io.png import GENERATION_DATA_KEY, encode_png, image_to_uint8
 
 logger = logging.getLogger(__name__)
@@ -41,6 +47,7 @@ class EngineWorker:
 
     def __init__(self, text_safety=None):
         self.text_safety = text_safety
+        self.save_root: Optional[str] = None     # path delivery's app root
         self.job_queue: "queue.Queue[dict]" = queue.Queue()
         self.status_queue: "queue.Queue[Any]" = queue.Queue()
         self._factories: Dict[str, Callable[[], Callable]] = {}
@@ -90,9 +97,17 @@ class EngineWorker:
             self._backends[model_type] = self._factories[model_type]()
         return self._backends[model_type]
 
-    def _result_cb(self, pending: list) -> Callable:
+    def _result_cb(self, params: dict, pending: list) -> Callable:
+        to_path = (params.get("result_delivery", "inline") == "path"
+                   and self.save_root is not None)
+
         def encode_and_post(img, meta):
-            self.status_queue.put(make_result_message(img, meta))
+            msg = make_result_message(img, meta)
+            if to_path:
+                msg = {"image_path": dirs.save_output_image(self.save_root,
+                                                            msg["image"]),
+                       "generation_parameters": msg["generation_parameters"]}
+            self.status_queue.put(msg)
 
         def cb(img, meta):
             pending.append(self._encode_pool.submit(encode_and_post, img, meta))
@@ -103,11 +118,9 @@ class EngineWorker:
         pending: list = []
         try:
             params = job.get("parameters", {})
-            if params.get("result_delivery", "inline") != "inline":
-                raise NotImplementedError(
-                    "only inline result delivery is ported")
             backend = self._backend_for(job["generator_model_type"])
-            backend(params, self.status_queue.put, self._result_cb(pending))
+            backend(params, self.status_queue.put,
+                    self._result_cb(params, pending))
             for f in pending:     # job_done must follow all images
                 f.result()
         except Exception as e:  # structured failure, keep the worker alive

@@ -29,7 +29,7 @@
 //   one k16 step of Q K^T and one 16-column atom of V. TMA's out-of-bounds
 //   zero fill pads d to a multiple of 16 (d = 40 runs as 48: 1.2x the
 //   operations, no extra bytes) and fills the ragged key and query tails.
-// - Two or three consumer warpgroups of 64 q rows each (three at d <= 80:
+// - Two or three consumer warpgroups of 64 q rows each (three at dp <= 96:
 //   more warps hide more of the wgmma and softmax latency, which bounds the
 //   small head dims more than the tensor or exp2 rates; two at d = 160 and
 //   512, whose O needs 240 registers a thread).
@@ -57,7 +57,16 @@
 //   leave a second item of 65 rows) and SDXL, and 128 in FLUX's joint
 //   attention (24 heads over 4352 tokens at 1024^2: 2 warpgroups of 64 q
 //   rows, O and S 64 fp32 registers each, q double-buffered beside a
-//   2-stage ring of 32 KB K and V tiles, 193 KB in all).
+//   2-stage ring of 32 KB K and V tiles, 193 KB in all), 88 (as 96) in
+//   Hunyuan-DiT's self- and cross-attention (16 heads: 6 boxes, the last
+//   half out of bounds; three warpgroups, whose O (48), S (64) and P (32)
+//   fit 160 registers without spills and which ran 1.3x faster than two;
+//   q double-buffered beside a 3-stage ring of 24 KB tiles, 217 KB) and
+//   256 in its attention pool
+//   (one query row, the mean token, over 257 keys in 8 heads: split over
+//   two warpgroups as d = 512, each owning 128 output columns of the same
+//   64 q rows, 64-key tiles; the q box's rows past Nq read as zeros and
+//   the store skips them).
 #include <cuda.h>
 #include <cudaTypedefs.h>
 #include <cuda_bf16.h>
@@ -527,10 +536,13 @@ extern "C" int cremage_flash_attention_bf16(const void* q, const void* k, const 
     case 64128'13: return launch<Plan<64, 128, 1, 3>>(a);
     case 80080'13: return launch<Plan<80, 80, 1, 3>>(a);
     case 80128'13: return launch<Plan<80, 128, 1, 3>>(a);
+    case 96080'13: return launch<Plan<96, 80, 1, 3>>(a);
+    case 96128'13: return launch<Plan<96, 128, 1, 3>>(a);
     case 128080'12: return launch<Plan<128, 80, 1, 2>>(a);
     case 128128'12: return launch<Plan<128, 128, 1, 2>>(a);
     case 160080'12: return launch<Plan<160, 80, 1, 2>>(a);
     case 160128'12: return launch<Plan<160, 128, 1, 2>>(a);
+    case 256064'22: return launch<Plan<256, 64, 2, 2>>(a);
     case 512032'22: return launch<Plan<512, 32, 2, 2>>(a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -29,7 +29,8 @@ _NO_TRANSPOSE_MARKERS = ("token_embedding", "position_embedding",
                          "positional_embedding", "text_projection",
                          "concept_embeds", "special_care_embeds",
                          "relative_attention_bias", "shared",
-                         "scale_shift_table")
+                         "scale_shift_table", "word_embeddings",
+                         "token_type_embeddings", "text_embedding_padding")
 # rank-2 tensors used as x @ P, matched by their whole name
 _NO_TRANSPOSE_NAMES = ("proj",)
 

@@ -102,6 +102,34 @@ def _to_l(rgb: np.ndarray) -> np.ndarray:
     return ((19595 * r + 38470 * g + 7471 * b + 0x8000) >> 16).astype(np.uint8)
 
 
+def _chunks(data: bytes):
+    """(kind, body) of each chunk of PNG bytes up to IEND, CRCs checked."""
+    if not data.startswith(_SIGNATURE):
+        raise ValueError("not a PNG")
+    pos = len(_SIGNATURE)
+    while pos + 12 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"bad CRC in {kind!r} chunk")
+        pos += 12 + n
+        if kind == b"IEND":
+            return
+        yield kind, body
+
+
+def _text_item(body: bytes) -> Tuple[str, str]:
+    k, _, v = body.partition(b"\0")
+    return k.decode("latin-1"), v.decode("latin-1")
+
+
+def png_text(data: bytes) -> Dict[str, str]:
+    """The tEXt items of PNG bytes, the pixels left undecoded."""
+    return dict(_text_item(body) for kind, body in _chunks(data)
+                if kind == b"tEXt")
+
+
 def decode_png(data: bytes, mode: str = "RGB",
                max_edge: Optional[int] = None
                ) -> Tuple[np.ndarray, Dict[str, str]]:
@@ -113,16 +141,8 @@ def decode_png(data: bytes, mode: str = "RGB",
     image data is inflated to the size the header gives and no further."""
     if mode not in ("RGB", "L"):
         raise ValueError(f"decode_png: mode {mode!r} is not one of RGB, L")
-    if not data.startswith(_SIGNATURE):
-        raise ValueError("not a PNG")
-    pos, idat, text, hdr, palette = len(_SIGNATURE), [], {}, None, None
-    while pos + 12 <= len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
-        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
-            raise ValueError(f"bad CRC in {kind!r} chunk")
-        pos += 12 + n
+    idat, text, hdr, palette = [], {}, None, None
+    for kind, body in _chunks(data):
         if kind == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
         elif kind == b"PLTE":
@@ -130,10 +150,7 @@ def decode_png(data: bytes, mode: str = "RGB",
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"tEXt":
-            k, _, v = body.partition(b"\0")
-            text[k.decode("latin-1")] = v.decode("latin-1")
-        elif kind == b"IEND":
-            break
+            text.update([_text_item(body)])
     if hdr is None:
         raise ValueError("PNG without an IHDR chunk")
     w, h, depth, ctype, comp, filt, interlace = hdr

@@ -76,6 +76,19 @@ def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return F.linear(x.float(), w.float())
 
 
+def _int_mm(rows: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """rows (M, K) int8 @ w (N, K)^T int8 -> (M, N) int32. cuBLAS's int8
+    product takes more than 16 rows and K and N multiples of 8
+    (Hunyuan-DiT's MLP is 6054 wide): zero rows, columns and weight rows
+    pad the operands, which leaves the int32 sums exact, and are cut off."""
+    (m, k), n = rows.shape, w.shape[0]
+    pad_k, pad_n = -k % 8, -n % 8
+    rows = F.pad(rows, (0, pad_k, 0, max(0, 17 - m)))
+    if pad_k or pad_n:
+        w = F.pad(w, (0, pad_k, 0, pad_n))
+    return torch._int_mm(rows, w.t())[:m, :n]
+
+
 def _w8a8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """int8 x int8 -> int32 product with the activations quantized per
     token at use (cremage_tpu/models/layers.py `_dynamic_int8`): scale =
@@ -84,11 +97,7 @@ def _w8a8(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     a_scale = torch.clamp_min(x.abs().amax(-1, keepdim=True).float() / 127.0,
                               1e-12)
     xq = torch.round(x.float() / a_scale).to(torch.int8)
-    rows = xq.reshape(-1, x.shape[-1])
-    m = rows.shape[0]
-    if m <= 16:        # cuBLAS's int8 product takes more than 16 rows
-        rows = F.pad(rows, (0, 0, 0, 17 - m))
-    acc = torch._int_mm(rows, w.t())[:m]
+    acc = _int_mm(xq.reshape(-1, x.shape[-1]), w)
     return acc.float().view(x.shape[:-1] + (w.shape[0],)) * a_scale
 
 
@@ -143,11 +152,7 @@ class PatchConv8bit(Conv2d):
         xq = torch.round(x.float() / a_scale[:, None, None, None]).to(torch.int8)
         hp, wp = h // p, wd // p
         rows = xq.reshape(b, c, hp, p, wp, p).permute(0, 2, 4, 1, 3, 5)
-        rows = rows.reshape(b * hp * wp, c * p * p)
-        m = rows.shape[0]
-        if m <= 16:        # cuBLAS's int8 product takes more than 16 rows
-            rows = F.pad(rows, (0, 0, 0, 17 - m))
-        acc = torch._int_mm(rows, w.reshape(o, -1).t())[:m]
+        acc = _int_mm(rows.reshape(b * hp * wp, c * p * p), w.reshape(o, -1))
         y = acc.float().view(b, hp * wp, o) * a_scale[:, None, None]
         y = (y * self.weight_scale).to(x.dtype)
         if self.bias is not None:

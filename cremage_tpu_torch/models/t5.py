@@ -1,5 +1,5 @@
 """T5 v1.1 encoder in PyTorch — the port of cremage_tpu/models/t5.py (the
-text tower of FLUX).
+text tower of FLUX, and as mT5-XL Hunyuan-DiT's second text branch).
 
 Relative-position-bucket attention bias (one table, shared by every
 layer), RMSNorm, gated tanh-GELU feed-forward, no biases. T5 does not
@@ -43,6 +43,13 @@ class T5Config:
 
 def t5_xxl_config(**kw) -> T5Config:
     return T5Config(**kw)
+
+
+def mt5_xl_config(**kw) -> T5Config:
+    """Hunyuan-DiT's text_encoder_2: the mT5-XL encoder (multilingual
+    vocabulary, the same gated-GELU v1.1 blocks)."""
+    return T5Config(vocab_size=250112, d_model=2048, num_heads=32, d_ff=5120,
+                    num_layers=24, **kw)
 
 
 class RMSNorm(nn.Module):

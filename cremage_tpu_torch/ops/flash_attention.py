@@ -19,8 +19,9 @@ from cremage_tpu_torch.ops.attention import dot_product_attention
 # padded head dims (round_up(d, 16)) the kernel is instantiated for: the
 # main path's d = 40, 80, 160 (UNet) and 512 (VAE mid-block), and d = 64
 # (the image safety checker's CLIP ViT-L/14 tower, 16 heads over 257 tokens;
-# SDXL) and d = 128 (FLUX's joint attention, 24 heads)
-SUPPORTED_PADDED_D = (48, 64, 80, 128, 160, 512)
+# SDXL), d = 128 (FLUX's joint attention, 24 heads), and Hunyuan-DiT's
+# d = 88 (as 96) and its attention pool's d = 256
+SUPPORTED_PADDED_D = (48, 64, 80, 96, 128, 160, 256, 512)
 
 SMEM_LIMIT = 232448   # shared memory one block can use on an H100
 # the plain version computes at most this many bytes of fp32 logits at once
@@ -63,8 +64,9 @@ def plan_flash(d: int, nq: int, nk: int) -> FlashPlan:
 
     The key tile fits the call: one 80-key tile up to 80 keys (the 77-key
     cross-attention, the 64-token self-attention), else 128; 32 at
-    d = 512, where two warpgroups split the 512 output columns over the
-    same 64 q rows and the tiles must fit shared memory. Each consumer
+    d = 512 and 64 at d = 256, where two warpgroups split the output
+    columns over the same 64 q rows and the tiles must fit shared memory
+    (Hunyuan-DiT's pool: one q row over 257 keys). Each consumer
     warpgroup owns 64 q rows (both share them at d = 512). q is
     double-buffered where two buffers fit beside a 2-stage ring; the ring
     has 3 stages where they fit and 2 otherwise."""
@@ -72,11 +74,13 @@ def plan_flash(d: int, nq: int, nk: int) -> FlashPlan:
     if dp not in SUPPORTED_PADDED_D:
         raise ValueError(f"flash_attention kernel: head dim {d} unsupported")
     # three consumer warpgroups hide more of the wgmma and softmax latency
-    # where their registers (160 a thread) hold O, S and P; d = 128, 160
-    # and 512 need two (240 a thread)
-    nwg = 3 if dp <= 80 else 2
+    # where their registers (160 a thread) hold O, S and P (up to dp = 96,
+    # without spills); dp = 128 and up need two (240 a thread)
+    nwg = 3 if dp <= 96 else 2
     if dp == 512:
         bk, split = 32, 2
+    elif dp == 256:
+        bk, split = 64, 2
     else:
         bk, split = (80 if nk <= 80 else 128), 1
     bq = 64 * nwg // split
@@ -149,7 +153,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Nq, H, D), k, v: (B, Nk, H, D) -> (B, Nq, H, D).
 
-    `flash_attention.launches` counts the kernel launches."""
+    `flash_attention.launches` counts the kernel launches, and
+    `flash_attention.launches_by_dp` ({padded head dim: launches}) them by
+    instantiation."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
@@ -171,7 +177,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     check(err, "flash_attention kernel launch")
     flash_attention.launches += 1
+    by_dp = flash_attention.launches_by_dp
+    by_dp[plan.dp] = by_dp.get(plan.dp, 0) + 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dp = {}

@@ -1,7 +1,8 @@
 """Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle / SVDBundle /
-SD3Bundle / PixArtBundle (the port of cremage_tpu/pipelines/loader.py
-`load_sd15_bundle`, `load_sdxl_bundle`, `load_flux_bundle`,
-`load_svd_bundle`, `load_sd3_bundle` and `load_pixart_bundle`),
+SD3Bundle / PixArtBundle / HunyuanBundle (the port of
+cremage_tpu/pipelines/loader.py `load_sd15_bundle`, `load_sdxl_bundle`,
+`load_flux_bundle`, `load_svd_bundle`, `load_sd3_bundle`,
+`load_pixart_bundle` and `load_hunyuan_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
 ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
 into the base model only, as in JAX; the refiner takes none.
@@ -33,15 +34,20 @@ import torch
 from cremage_tpu_torch.core.rng import resolve_device
 from cremage_tpu_torch.io import checkpoint as CK
 from cremage_tpu_torch.io.lora import merge_lora
-from cremage_tpu_torch.io.diffusers_keys import pixart_from_diffusers
+from cremage_tpu_torch.io.diffusers_keys import (
+    hunyuan_from_diffusers, is_diffusers_vae, pixart_from_diffusers,
+    sd_vae_from_diffusers,
+)
 from cremage_tpu_torch.io.quantize import (
     MIN_SIZE, check_dtype, prepare_8bit, quantize_module, storage_report,
     unet_kind,
 )
+from cremage_tpu_torch.models.bert import BertModel, hunyuan_clip_config
 from cremage_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from cremage_tpu_torch.models.clip_vision import CLIPVisionModel, vit_h14_config
 from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
 from cremage_tpu_torch.models.flux import FluxModel, flux_dev_config, flux_schnell_config
+from cremage_tpu_torch.models.hunyuan import HunyuanDiT, hunyuan_dit_config
 from cremage_tpu_torch.models.layers import set_compute_dtype
 from cremage_tpu_torch.models.mmdit import MMDiT, sd3_medium_config
 from cremage_tpu_torch.models.open_clip import (
@@ -52,13 +58,14 @@ from cremage_tpu_torch.models.unet import (
     UNetConfig, UNetModel, sd15_unet_config, sdxl_base_unet_config,
     sdxl_refiner_unet_config,
 )
-from cremage_tpu_torch.models.t5 import T5Encoder, t5_xxl_config
+from cremage_tpu_torch.models.t5 import T5Encoder, mt5_xl_config, t5_xxl_config
 from cremage_tpu_torch.models.vae import (
     AutoencoderKL, VAEConfig, flux_vae_config, sd3_vae_config, sdxl_vae_config,
 )
 from cremage_tpu_torch.models.video_unet import VideoUNet, svd_unet_config
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.pipelines.flux import FluxBundle, FluxConditioner
+from cremage_tpu_torch.pipelines.hunyuan import HunyuanBundle, HunyuanTextEncoder
 from cremage_tpu_torch.pipelines.pixart import PixArtBundle
 from cremage_tpu_torch.pipelines.sd3 import SD3Bundle, SD3Conditioner
 from cremage_tpu_torch.pipelines.sd15 import SD15Bundle
@@ -431,3 +438,78 @@ def load_pixart_bundle(transformer_ckpt: str, vae_ckpt: Optional[str] = None,
             loads.read(vae_ckpt)), CK.PREFIX_VAE), vae_ckpt, "VAE")
     return PixArtBundle(dit=dit, vae=vae, t5_tokenize=t5_tokenize,
                         t5_len=t5_len, load_report=loads.report)
+
+
+def standalone_vae_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """A standalone VAE file's keys as models/vae.py names them: the CompVis
+    layout (bare or under `first_stage_model.`), or diffusers'
+    AutoencoderKL layout through io/diffusers_keys.py
+    `sd_vae_from_diffusers`."""
+    if is_diffusers_vae(sd):
+        return sd_vae_from_diffusers(sd)
+    return CK.component_state_dict(CK.vae_state_dict_from_standalone(sd),
+                                   CK.PREFIX_VAE)
+
+
+def bert_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """An HF BertModel file's keys as models/bert.py names them: under
+    `bert.` where the file has that prefix (the keys outside it dropped, as
+    JAX reads it), the position_ids buffer dropped."""
+    if any(k.startswith("bert.") for k in sd):
+        sd = {k[len("bert."):]: v for k, v in sd.items()
+              if k.startswith("bert.")}
+    return {k: v for k, v in sd.items() if k != CK.POSITION_IDS}
+
+
+def load_hunyuan_bundle(dit_ckpt: str, vae_ckpt: Optional[str] = None,
+                        clip_ckpt: Optional[str] = None,
+                        clip_vocab: Optional[str] = None,
+                        mt5_ckpt: Optional[str] = None, mt5_tokenize=None,
+                        quantize_dit: Optional[str] = None,
+                        quantize_min_size: int = MIN_SIZE, device=None,
+                        dtype: torch.dtype = torch.bfloat16) -> HunyuanBundle:
+    """A Hunyuan-DiT bundle on `device` (CUDA unless named) in `dtype` from
+    its component files, as JAX's loader takes them: the diffusers
+    HunyuanDiT2DModel transformer (io/diffusers_keys.py
+    `hunyuan_from_diffusers`), the SDXL VAE as a standalone file in the
+    CompVis or diffusers layout (`standalone_vae_state_dict`; JAX reads the
+    CompVis one only), the Chinese-CLIP BertModel in HF's layout
+    (`clip_ckpt`) with its `clip_vocab` vocab.txt, and the mT5-XL encoder
+    in HF's T5EncoderModel layout (`mt5_ckpt`) with `mt5_tokenize` (a
+    spiece.model path or bytes, or a callable). A missing text branch
+    gives zero contexts, as in JAX (pipelines/hunyuan.py
+    `HunyuanTextEncoder`). `quantize_dit` as in load_sd3_bundle (the
+    patch embedding, 22,528 elements at full width, stays below the min
+    size). JAX decodes with an all-zero VAE when no `vae_ckpt` is named;
+    the port refuses. Every part loads strictly. `load_report` as in
+    load_sd15_bundle."""
+    if not vae_ckpt:
+        raise FileNotFoundError(
+            "Hunyuan-DiT needs vae_ckpt (the SDXL VAE as a standalone file): "
+            "the JAX loader decodes with an all-zero VAE without it, the port "
+            "refuses")
+    quantize = _dit_kind(quantize_dit)
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    cfg = hunyuan_dit_config(dtype=dtype)
+    dit = loads.fill(
+        _on_meta(HunyuanDiT, cfg, dtype, quantize, min_size=quantize_min_size,
+                 include_convs=quantize == "int8"),
+        hunyuan_from_diffusers(loads.read(dit_ckpt)), dit_ckpt, "Hunyuan DiT",
+        quantize)
+    vae = loads.fill(
+        _on_meta(AutoencoderKL, sdxl_vae_config(dtype=dtype), dtype),
+        standalone_vae_state_dict(loads.read(vae_ckpt)), vae_ckpt, "VAE")
+    bert = mt5 = None
+    if clip_ckpt:
+        bert = loads.fill(
+            _on_meta(BertModel, hunyuan_clip_config(dtype=dtype), dtype),
+            bert_state_dict(loads.read(clip_ckpt)), clip_ckpt, "BERT")
+    if mt5_ckpt:
+        mt5 = loads.fill(
+            _on_meta(T5Encoder, mt5_xl_config(dtype=dtype), dtype),
+            CK.t5_encoder_state_dict(loads.read(mt5_ckpt)), mt5_ckpt, "mT5")
+    text = HunyuanTextEncoder(bert, clip_vocab, mt5, mt5_tokenize,
+                              cfg.text_len, cfg.text_len_t5, cfg.clip_dim,
+                              cfg.mt5_dim)
+    return HunyuanBundle(dit=dit, vae=vae, text=text, load_report=loads.report)

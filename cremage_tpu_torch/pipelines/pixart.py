@@ -109,19 +109,24 @@ class PixArtPipeline(NoMeshes):
         return name, S.get_sigmas_karras(steps, sched.sigma_min,
                                           sched.sigma_max)
 
+    def denoiser(self, c, uc, scale: float):
+        """The CFG denoiser over the DiT's eps, its learned-sigma half
+        dropped."""
+        dit = self.bundle.dit
+
+        def eps_model(xx, tt, cond):
+            return dit(xx, tt, cond)[..., :xx.shape[-1]]
+
+        return cfg_denoiser(EpsDenoiser(eps_model, self.bundle.schedule), c,
+                            uc, scale)
+
     def sample(self, opts: GenerationOptions, x: torch.Tensor, c, uc,
                status_cb: StatusCb = _noop_status,
                noise: Optional[NoiseSource] = None) -> torch.Tensor:
         """The sampler from unit noise x (B, h, w, 4), scaled here by the
         first sigma -> float32 latents."""
-        dit = self.bundle.dit
         name, sigmas = self.sigmas(opts)
-
-        def eps_model(xx, tt, cond):
-            return dit(xx, tt, cond)[..., :xx.shape[-1]]
-
-        den = cfg_denoiser(EpsDenoiser(eps_model, self.bundle.schedule), c, uc,
-                           float(opts.scale))
+        den = self.denoiser(c, uc, float(opts.scale))
         steps = opts.sampling_steps
         return K.SAMPLERS[name](den, x * float(sigmas[0]), sigmas, noise,
                                 progress_cb=lambda i: status_cb(

@@ -1,13 +1,18 @@
-"""Denoiser wrappers: eps parameterization + CFG (the port's copy of the
-parts of cremage_tpu/samplers/denoiser.py the SD1.5 path uses).
+"""Denoiser wrappers: eps and v parameterizations + CFG (the port's copy of
+the parts of cremage_tpu/samplers/denoiser.py its pipelines use).
 
 A *denoiser* is a function `denoise(x, sigma) -> denoised` (the
-k-diffusion convention; sigma is a scalar or per-batch vector):
-denoised = x - sigma * eps(x * c_in, t) with c_in = 1/sqrt(sigma^2 +
-sigma_data^2) and t the fractional timestep interpolated in log-sigma.
+k-diffusion convention; sigma is a scalar or per-batch vector), with
+c_in = 1/sqrt(sigma^2 + sigma_data^2) and t the fractional timestep
+interpolated in log-sigma:
+- eps: denoised = x - sigma * eps(x * c_in, t);
+- v (Hunyuan-DiT): denoised = c_skip * x + c_out * v(x * c_in, t), c_skip =
+  sigma_data^2 / (sigma^2 + sigma_data^2), c_out = -sigma * sigma_data /
+  sqrt(sigma^2 + sigma_data^2).
 
 CFG runs as one batched model call over [uncond; cond] and combines
-e_uc + scale * (e_c - e_uc), uncond first (reference ordering).
+e_uc + scale * (e_c - e_uc), uncond first (reference ordering); a
+conditioning that is a tuple of tensors is batched element by element.
 """
 from __future__ import annotations
 
@@ -62,13 +67,35 @@ class EpsDenoiser:
         return x - eps.float() * _append_dims(sigma, x.ndim)
 
 
-def cfg_denoiser(denoise: Callable, cond: torch.Tensor,
-                 uncond: torch.Tensor, scale: float) -> Callable:
+class VDenoiser:
+    """Wrap a v-prediction model into denoise(x, sigma, cond)."""
+
+    def __init__(self, v_model: Callable[..., torch.Tensor],
+                 schedule: DiscreteSchedule, sigma_data: float = 1.0):
+        self.v_model = v_model
+        self.schedule = schedule
+        self.sigma_data = sigma_data
+
+    def __call__(self, x, sigma, cond: Any = None):
+        sigma = _bcast_sigma(sigma, x.shape[0], x.device)
+        sd2 = self.sigma_data ** 2
+        c_skip = sd2 / (sigma ** 2 + sd2)
+        c_out = -sigma * self.sigma_data / torch.sqrt(sigma ** 2 + sd2)
+        c_in = 1.0 / torch.sqrt(sigma ** 2 + sd2)
+        t = sigma_to_t(self.schedule, sigma)
+        v = self.v_model(x * _append_dims(c_in, x.ndim), t, cond).float()
+        return _append_dims(c_skip, x.ndim) * x + _append_dims(c_out, x.ndim) * v
+
+
+def cfg_denoiser(denoise: Callable, cond: Any, uncond: Any,
+                 scale: float) -> Callable:
     """Close a conditional denoiser over (cond, uncond, scale); returns
-    `denoise(x, sigma) -> denoised`."""
+    `denoise(x, sigma) -> denoised`. cond and uncond are tensors or tuples
+    of tensors."""
     if uncond is None or scale == 1.0:
         return lambda x, sigma: denoise(x, sigma, cond)
-    cond_in = torch.cat([uncond, cond], dim=0)
+    cond_in = (tuple(torch.cat([u, c], dim=0) for u, c in zip(uncond, cond))
+               if isinstance(cond, tuple) else torch.cat([uncond, cond], dim=0))
 
     def fn(x, sigma):
         b = x.shape[0]

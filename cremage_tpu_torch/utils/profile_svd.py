@@ -31,18 +31,17 @@ from cremage_tpu_torch.utils.profile_sd15 import trace
 FRAMES, STEPS, RES = 14, 25, (576, 1024)   # bench_svd's job
 
 
-def module_seconds(model, classes, run) -> dict:
-    """Device seconds of each class's calls in `run()`, from CUDA events
-    around every call (forward pre- and post-hooks): {class name: (s,
-    calls)}."""
+def call_seconds(groups: dict, run) -> dict:
+    """Device seconds of the calls of each group of modules in `run()`
+    ({name: modules}), from CUDA events around every call (forward pre- and
+    post-hooks): {name: (s, calls)}. The card runs ahead of the host, so
+    each pair brackets the module's kernels."""
     import torch
 
-    pairs = {c.__name__: [] for c in classes}
+    pairs = {name: [] for name in groups}
     hooks = []
-    for m in model.modules():
-        if isinstance(m, tuple(classes)):
-            name = type(m).__name__
-
+    for name, modules in groups.items():
+        for m in modules:
             def pre(mod, args, name=name):
                 ev = torch.cuda.Event(enable_timing=True)
                 ev.record()
@@ -63,6 +62,14 @@ def module_seconds(model, classes, run) -> dict:
             h.remove()
     return {k: (sum(a.elapsed_time(b) for a, b in v) / 1e3, len(v))
             for k, v in pairs.items()}
+
+
+def module_seconds(model, classes, run) -> dict:
+    """`call_seconds` of each class's modules in `model`: {class name: (s,
+    calls)}."""
+    return call_seconds({c.__name__: [m for m in model.modules()
+                                      if isinstance(m, c)] for c in classes},
+                        run)
 
 
 def main() -> int:

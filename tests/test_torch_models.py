@@ -253,7 +253,7 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     is a slice of linear1's output), and of SVD's video UNet at one and
     two videos (a (3, 1, 1) convolution's output over one video is a
     strided view once its frames are put back first), ViT-H tower, SD3's
-    MMDiT and PixArt-Σ here."""
+    MMDiT, PixArt-Σ and Hunyuan-DiT here."""
     from cremage_tpu_torch.models import clip_vision as CV
     from cremage_tpu_torch.models import flux as FX
     from cremage_tpu_torch.models import mmdit as MM
@@ -349,3 +349,17 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
         pixart(torch.randn(2, 4, 6, 4), torch.tensor([1.0, 2.0]),
                torch.randn(2, 5, 48))
     assert calls["attn"] == 2 * count(pixart, PXM.PixArtBlock) == 4
+
+    # Hunyuan-DiT's self-attention (v a slice of the fused qkv), its
+    # cross-attention (k and v slices of the fused kv) and its pool
+    from cremage_tpu_torch.models import hunyuan as HY
+
+    monkeypatch.setattr(HY, "attention", attn)
+    hunyuan = HY.HunyuanDiT(HY.HunyuanConfig(
+        hidden_size=32, depth=4, num_heads=4, clip_dim=16, mt5_dim=24,
+        pooled_dim=16, text_len=5, text_len_t5=6, dtype=torch.float32)).eval()
+    calls["attn"] = 0
+    with torch.no_grad():
+        hunyuan(torch.randn(2, 4, 6, 4), torch.tensor([1.0, 2.0]),
+                torch.randn(2, 5, 16), torch.randn(2, 6, 24))
+    assert calls["attn"] == 2 * count(hunyuan, HY.HunyuanBlock) + 1 == 9

@@ -153,6 +153,11 @@ SVD_NQ_NK_D = [(9216, 9216, 64), (9216, 1, 64), (2304, 2304, 64),
 # tokens (24 heads of 64), PixArt-Σ's self- and cross-attention (over 120
 # T5 tokens) at d = 72, padded to 80 (a partial 16-column TMA box)
 DIT_NQ_NK_D = [(4250, 4250, 64), (4096, 4096, 72), (4096, 120, 72)]
+# Hunyuan-DiT at 1024^2: self-attention and cross-attention over its 77 + 256
+# text tokens at d = 88 (padded to 96), an 80-key tile at d = 88, and its
+# attention pool: one query row over the 257 mT5 tokens at d = 256
+HUNYUAN_NQ_NK_D = [(4096, 4096, 88), (4096, 333, 88), (100, 77, 88),
+                   (1, 257, 256)]
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -214,8 +219,8 @@ def test_plans_take_the_refiner_shapes():
     """The SDXL refiner's K1 and K2 shapes, FLUX's K1 shapes at dp = 128
     (2 warpgroups, q double-buffered beside a 2-stage ring), SVD's K1
     and K2 shapes (one key: a single 80-key tile) and the DiTs' K1 shapes
-    (SD3's 4250 keys, PixArt's d = 72 on dp = 80), through each plan test
-    above (one test: under `--dist load` the number of collected items
+    (SD3's 4250 keys, PixArt's d = 72 on dp = 80, Hunyuan-DiT's d = 88 on
+    dp = 96 and its pool's d = 256), through each plan test above (one test: under `--dist load` the number of collected items
     sets the suite's wall time, ROADMAP.md)."""
     for nq, nk, d in DIT_NQ_NK_D:
         plan = plan_flash(d, nq, nk)
@@ -230,8 +235,18 @@ def test_plans_take_the_refiner_shapes():
         if nk == 1:
             assert (plan_flash(d, nq, nk).bk, plan_flash(d, nq, nk).stages) \
                 == (80, 3)
+    for nq, nk, d in HUNYUAN_NQ_NK_D:
+        plan = plan_flash(d, nq, nk)
+        # d = 88: 6 boxes, 3 warpgroups of 64 rows, q double-buffered beside
+        # a 3-stage ring of 24 KB tiles; the pool's d = 256: both warpgroups
+        # on the same 64 q rows, 128 output columns each, 64-key tiles
+        want = ((96, 3, 1, 192, 2, 3) if d == 88
+                else (256, 2, 2, 64, 2, 2))
+        assert (plan.dp, plan.nwg, plan.split, plan.bq, plan.q_bufs,
+                plan.stages) == want, (nq, nk, d)
+        assert plan.bk == (64 if d == 256 else 80 if nk <= 80 else 128)
     for nq, nk, d in (REFINER_NQ_NK_D + FLUX_NQ_NK_D + SVD_NQ_NK_D
-                      + DIT_NQ_NK_D):
+                      + DIT_NQ_NK_D + HUNYUAN_NQ_NK_D):
         for check in (test_flash_plan_fits_shared_memory,
                       test_flash_plan_tma_boxes, test_flash_plan_key_tile,
                       test_flash_plan_output_split_covers_d_once,
@@ -671,29 +686,65 @@ def _check_int8_patch_embedding(cuda, b, h, w):
     assert float((got - want).abs().max()) <= tol, (b, h, w)
 
 
+def _check_flash_store_bounds(cuda, b, nq, nk, h, d):
+    """The kernel's entry point writing into the head of a buffer whose
+    tail holds a sentinel: the output equals the wrapper's, and the rows of
+    the last q block past Nq (TMA boxes of 64 rows; one row at the pool's
+    Nq = 1) leave the tail untouched."""
+    from cremage_tpu_torch.ops.build import check, kernels
+
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _qkv(d + 1, b, nq, nk, h, d))
+    plan = plan_flash(d, nq, nk)
+    tail = plan.bq * h * d
+    buf = torch.full((q.numel() + tail,), 7.0, device=cuda,
+                     dtype=torch.bfloat16)
+    check(kernels().cremage_flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), buf.data_ptr(), b, h, nq,
+        nk, d, d ** -0.5, plan.dp, plan.bk, plan.bq, plan.stages, plan.split,
+        plan.smem_bytes, torch.cuda.current_stream(cuda).cuda_stream), "K1")
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:q.numel()].view(q.shape), flash_attention(q, k, v))
+    assert bool((buf[q.numel():] == 7.0).all()), (b, nq, nk, h, d)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_at_refiner_shapes(cuda):
     """The SDXL refiner's K1 calls on the card (12 and 24 heads of d = 64:
     a TMA box spans heads), and FLUX's dp = 128 instantiation: its joint
     attention at 1024^2 (24 heads), an 80-key tile with a ragged q block,
     and ragged key and q tails beyond it; SD3's 4250 joint keys and
-    PixArt's d = 72 (a partial 16-column box of dp = 80): the kernel, as
-    test_flash_kernel_matches_plain holds it. Beside K1 in FLUX's blocks,
+    PixArt's d = 72 (a partial 16-column box of dp = 80); Hunyuan-DiT's
+    d = 88 (a partial box of dp = 96) at its 1024^2 self- and
+    cross-attention, over an 80-key tile and with ragged tails, and its
+    pool's d = 256 over 257 keys at one q row (and at 3): the kernel, as
+    test_flash_kernel_matches_plain holds it, and at the ragged ones
+    nothing stored past the last q row. Beside K1 in FLUX's blocks,
     `Linear`'s float8 and int8 products on the card against its CPU
-    branch, at FLUX's width and at 7 rows (`_int_mm`'s padding), and SD3's
-    int8 patch embedding at its 1024^2 latent and at 4x4 (padded rows)."""
+    branch, at FLUX's width and at 7 rows (`_int_mm`'s padding) and at
+    Hunyuan-DiT's MLP widths (6054, not a multiple of 8: padded), and
+    SD3's int8 patch embedding at its 1024^2 latent and at 4x4 (padded
+    rows)."""
     cases = [(2, nq, nk, h, d) for (nq, nk, d), h in zip(
         REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24))] + [
         (1, 4352, 4352, 24, 128), (1, 4352, 4100, 24, 128),
         (2, 4352, 4352, 24, 128), (2, 100, 77, 4, 128), (1, 300, 130, 3, 128),
-        (1, 300, 4250, 4, 64), (1, 256, 256, 2, 72), (1, 300, 120, 2, 72)]
+        (1, 300, 4250, 4, 64), (1, 256, 256, 2, 72), (1, 300, 120, 2, 72),
+        (2, 4096, 4096, 16, 88), (2, 4096, 333, 16, 88), (2, 100, 77, 4, 88),
+        (1, 300, 200, 3, 88), (2, 1, 257, 8, 256), (1, 3, 257, 8, 256)]
     for b, nq, nk, h, d in cases:
         before = flash_attention.launches
         _check_flash_kernel(cuda, b, nq, nk, h, d)
         assert flash_attention.launches == before + 1, (b, nq, nk, h, d)
+    for case in ((2, 1, 257, 8, 256), (1, 3, 257, 8, 256),
+                 (1, 300, 200, 3, 88)):
+        _check_flash_store_bounds(cuda, *case)
     for kind in ("float8_e4m3", "float8_e5m2", "int8"):
         for rows in (300, 7):
             _check_8bit_linear(cuda, rows, 3072, 3072, kind)
+    for kind in ("float8_e4m3", "int8"):     # Hunyuan-DiT's MLP: 6054 wide
+        for n_in, n_out in ((1408, 6054), (6054, 1408)):
+            _check_8bit_linear(cuda, 300, n_in, n_out, kind)
     for b, h, w in ((2, 128, 128), (1, 4, 4)):
         _check_int8_patch_embedding(cuda, b, h, w)
 

@@ -1,12 +1,14 @@
 """A CPU round trip through the port's HTTP API: POST /v1/generate, drain
-/v1/status, decode the PNGs. The message keys must be the JAX worker's
-(cremage_tpu/app/worker.make_result_message)."""
+/v1/status, decode the PNGs, inline and delivered by path. The message keys
+must be the JAX worker's (cremage_tpu/app/worker.make_result_message)."""
 import base64
 import io
 import json
+import os
 import struct
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 import zlib
 
@@ -16,6 +18,7 @@ import torch
 from PIL import Image
 
 from cremage_tpu.app.worker import make_result_message as j_result_message
+from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.server import ApiServer, load_image, register_sd15
 from cremage_tpu_torch.app.worker import EngineWorker, make_result_message
 from cremage_tpu_torch.core.config import GenerationOptions
@@ -49,6 +52,10 @@ def pipe():
 
 @pytest.fixture(scope="module")
 def server(pipe, tmp_path_factory):
+    """The server on `pipe`, its app root (path delivery's outputs) under a
+    temporary HOME."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("HOME", str(tmp_path_factory.mktemp("home")))
     worker = EngineWorker()
     register_sd15(worker, pipe)          # no inpainting bundle
     srv = ApiServer(worker=worker, port=0,
@@ -56,6 +63,7 @@ def server(pipe, tmp_path_factory):
     srv.start()
     yield f"http://127.0.0.1:{srv.port}"
     srv.stop()
+    mp.undo()
 
 
 def _call(url, body=None):
@@ -80,6 +88,11 @@ def _drain(url, n_jobs, timeout=60.0):
 
 
 def test_generate_round_trip(server):
+    """Two PNGs inline with their metadata; the same job with
+    result_delivery "path" writes the same PNG bytes under the app root's
+    outputs (the JAX worker's message keys), which /v1/images/file serves
+    as they are and /v1/images/meta reads back; /v1/health counts the
+    kernels' launches."""
     body = {"generator_model_type": "SD 1.5", "mode": "text_to_image",
             "parameters": {"prompt": "a cat", "negative_prompt": "bad",
                            "H": 64, "W": 64, "sampling_steps": 2,
@@ -101,6 +114,23 @@ def test_generate_round_trip(server):
         meta = json.loads(text[GENERATION_DATA_KEY])
         assert meta == json.loads(m["generation_parameters"])
         assert meta["seed"] == 7 + k and meta["prompt"] == "a cat"
+
+    body["parameters"]["result_delivery"] = "path"
+    _call(server + "/v1/generate", body)
+    msgs = _drain(server, 1)
+    paths = [m for m in msgs if isinstance(m, dict) and "image_path" in m]
+    outputs = os.path.join(dirs.app_root(), "outputs") + os.sep
+    assert [set(m) for m in paths] == [{"image_path",
+                                        "generation_parameters"}] * 2
+    for m, inline in zip(paths, images):
+        assert m["image_path"].startswith(outputs)
+        png = base64.b64decode(inline["image_b64"])
+        q = urllib.parse.quote(m["image_path"])
+        with urllib.request.urlopen(f"{server}/v1/images/file?path={q}",
+                                    timeout=30) as r:
+            assert (r.read(), r.headers["Content-Type"]) == (png, "image/png")
+        assert _call(f"{server}/v1/images/meta?path={q}") == {
+            "generation_data": json.loads(m["generation_parameters"])}
     health = _call(server + "/v1/health")
     assert health["ok"] and "flash_attention_launches" in health["metrics"]
 
