@@ -194,20 +194,42 @@ is nonzero and no final line is printed:
    attention pool, one query over 257 mT5 tokens), counted by
    instantiation; both text contexts finite and not zeros; the int8 patch
    embedding left in bf16 (below the min size);
-18. new paths' shapes: hooks record the shape of every K1 and K2 call of
+18. kandinsky: Kandinsky 2.2 at 768^2, 50 decoder steps of the served
+   default ("DDIM" -> Euler A), the prior's 25 Euler A steps, CFG 4.0,
+   batch 1 (the decoder at batch 2), from seeded random fp16 component
+   files under build/kandinsky/ as a kandinsky_dir holds them (6.6 GB):
+   the prior in diffusers' PriorTransformer layout (20 layers of 2048
+   over 81 tokens, with clip_mean and clip_std), the decoder UNet in
+   diffusers' layout ((384, 768, 1152, 1536), 3 layers a block, 64-wide
+   heads, its image heads), the bigG text tower in HF's layout and MoVQ
+   in diffusers' VQModel layout (the decoder, post_quant_conv, the
+   codebook, an encoder and quant_conv the loader drops by name). The
+   --config server serves jobs naming kandinsky_dir: a 2-step warm-up (the
+   load), the job twice (timed), once more with the shape hooks, once
+   traced by torch.profiler (the idle share), and one inpainting request
+   on an uploaded image and mask. Checks: every weight and clip_mean /
+   clip_std equal their files'; deep_cache and img2img refused; images
+   finite, non-constant, 768^2, the inpainted one keeping the unmasked
+   pixels; the K1 / K2 launches equal the module tree's count (22 K1 calls
+   an evaluation over [10 context; spatial] keys at d = 64, MoVQ's d = 512
+   over 9216 tokens) and the recorded shapes' sum; one full-width decoder
+   evaluation in bf16 against fp32 through the plain versions, on the
+   card;
+19. new paths' shapes: hooks record the shape of every K1 and K2 call of
    the checked run of each modes request, of the samplers phase, of
    sd15_full, of sdxl's and sdxl_modes' requests, of flux's, svd's, sd3's,
-   pixart's and hunyuan's (the recorded calls
+   pixart's, hunyuan's and kandinsky's (the recorded calls
    must add up to the launch counts), and the same checks as 4 and 5 run
    at every shape the main path's rows do not hold (the safety checker's
    d = 64 at batch 4 and 1, SDXL's d = 64 at 10 and 20 heads and the
    refiner's at 12 and 24 among them, FLUX's d = 128, SVD's batch-28
    calls over 9216 tokens and over one key, SD3's 4250 keys, PixArt's
-   d = 72, Hunyuan-DiT's d = 88 and its pool's d = 256 at one q row), and
-   at K2's H*W % 8 != 0 cases
+   d = 72, Hunyuan-DiT's d = 88 and its pool's d = 256 at one q row,
+   Kandinsky's Nk = Nq + 10 at d = 64 and its 36- and 48-channel groups),
+   and at K2's H*W % 8 != 0 cases
    (K2_ANY_HW); each row lists the paths that run its shape with their
    calls per request;
-19. the kernels line (per-request totals over the main path's shapes, as
+20. the kernels line (per-request totals over the main path's shapes, as
    before, and per new path; K1's dp = 96 and dp = 256 instantiations in
    entries of their own, per Hunyuan-DiT request), then the contract's
    last line.
@@ -249,7 +271,7 @@ DELIVERY_STEPS = 4
 LIMITS_S = dict(build=300, shapes_and_k1=180, k2=120, unet=180,
                 serving=300, modes=300, samplers=300, sd15_full=480,
                 sdxl=600, sdxl_modes=720, flux=900, svd=600, sd3=420,
-                pixart=300, hunyuan=480, new_shapes=600)
+                pixart=300, hunyuan=480, kandinsky=420, new_shapes=600)
 # K2 where H*W % 8 != 0, beside the paths that run it (sdxl's 832x1216
 # request): SD1.5 at 640^2 (10x10) and 576^2 (18x18, 9x9), and slabs that
 # start off 16-byte boundaries (640 channels at 9x9; 5 channels of 33,123
@@ -376,20 +398,22 @@ def ptxas_summary(log: str) -> dict:
 @contextlib.contextmanager
 def recording(*models):
     """While open, count the K1 and K2 calls of the models (bundles: their
-    UNets, VAEs, ControlNets and SVD's image tower, or a FLUX, SD3, PixArt
-    or Hunyuan-DiT bundle's transformer and VAE; or modules, such as the
-    safety checker)
+    UNets, VAEs, ControlNets and SVD's image tower, a FLUX, SD3, PixArt
+    or Hunyuan-DiT bundle's transformer and VAE, or a Kandinsky bundle's
+    decoder UNet and MoVQ; or modules, such as the safety checker)
     by shape: yields (attn, gn, weight), where each call adds weight["n"]
     (1 unless the caller sets it) to its shape's count."""
     from cremage_tpu_torch.models.clip import CLIPAttention
     from cremage_tpu_torch.models.flux import DoubleBlock, SingleBlock
     from cremage_tpu_torch.models.hunyuan import AttentionPool, HunyuanBlock
+    from cremage_tpu_torch.models.kandinsky_decoder import AddedKVAttention
     from cremage_tpu_torch.models.layers import GroupNorm
     from cremage_tpu_torch.models.mmdit import JointBlock
     from cremage_tpu_torch.models.open_clip import _Attention
     from cremage_tpu_torch.models.pixart import PixArtBlock
     from cremage_tpu_torch.models.unet import CrossAttention
     from cremage_tpu_torch.models.vae import AttnBlock
+    from cremage_tpu_torch.models.vq import MoVQAttention
 
     attn, gn = {}, {}
     weight = {"n": 1}
@@ -435,6 +459,11 @@ def recording(*models):
         add(attn, (b, n, n, h, d))
         add(attn, (b, n, y.shape[1], h, d))
 
+    def on_added_kv(mod, args):    # Kandinsky's decoder: [ctx; x] keys
+        x, ctx = args[:2]
+        b, c, h, w = x.shape
+        add(attn, (b, h * w, h * w + ctx.shape[1], mod.heads, c // mod.heads))
+
     def on_pool(mod, args):        # Hunyuan-DiT's pool: one query row
         b, lm, w = args[0].shape
         ph = mod.cfg.pooler_heads
@@ -448,14 +477,18 @@ def recording(*models):
         elif hasattr(model, "vae"):        # a FLUX, SD3, PixArt or Hunyuan one
             parts = [getattr(model, a, None) for a in ("model", "mmdit", "dit")
                      ] + [model.vae]
+        elif hasattr(model, "movq"):       # a Kandinsky one
+            parts = [model.decoder, model.movq]
         else:
             parts = [model]
         for m in (m for part in parts if part is not None
                   for m in part.modules()):
             if isinstance(m, CrossAttention):
                 hooks.append(m.register_forward_pre_hook(on_cross))
-            elif isinstance(m, AttnBlock):
+            elif isinstance(m, (AttnBlock, MoVQAttention)):
                 hooks.append(m.register_forward_pre_hook(on_vae_attn))
+            elif isinstance(m, AddedKVAttention):
+                hooks.append(m.register_forward_pre_hook(on_added_kv))
             elif isinstance(m, GroupNorm):
                 hooks.append(m.register_forward_pre_hook(on_gn))
             elif isinstance(m, (CLIPAttention, _Attention)):
@@ -3583,6 +3616,361 @@ def dit_phase(phase, dev, card, root: Path, res, steps, requests, quantized,
     return rows, shapes, launches, by_dp
 
 
+KANDINSKY_RES, KANDINSKY_STEPS, KANDINSKY_REQUESTS = 768, 50, 2
+KANDINSKY_CFG = 4.0          # diffusers' KandinskyV22 pipelines' default
+KANDINSKY_FILES_GB = 14      # free disk the 6.5 GB of files need, with room
+KANDINSKY_CODEBOOK = 16384   # MoVQ's codebook entries (num_vq_embeddings)
+
+
+def kandinsky_configs():
+    """Kandinsky 2.2's published widths and depths: the prior (20 layers of
+    2048 over 77 + 4 tokens), the decoder UNet ((384, 768, 1152, 1536), 3
+    layers a block, 64-wide heads, 10 context tokens of 768), MoVQ ((128,
+    256, 256, 512)) and the bigG text tower, in bf16."""
+    import torch
+
+    from cremage_tpu_torch.models.kandinsky import PriorConfig
+    from cremage_tpu_torch.models.kandinsky_decoder import KandinskyUNetConfig
+    from cremage_tpu_torch.models.open_clip import openclip_bigg_config
+    from cremage_tpu_torch.models.vq import MoVQConfig
+
+    bf16 = torch.bfloat16
+    return dict(prior=PriorConfig(dtype=bf16),
+                decoder=KandinskyUNetConfig(dtype=bf16),
+                movq=MoVQConfig(dtype=bf16), text=openclip_bigg_config(dtype=bf16))
+
+
+def diffusers_prior_key(key: str, shape):
+    """(diffusers PriorTransformer key, shape) of a key of the port's
+    DiffusionPrior, the inverse of io/diffusers_keys.py
+    `kandinsky_prior_from_diffusers` (the position table is (1, N, C)
+    there)."""
+    from cremage_tpu_torch.io import diffusers_keys as DK
+
+    if key == "positional_embedding":
+        return key, (1,) + tuple(shape)
+    if key.startswith("blocks."):
+        i, rest = key[len("blocks."):].split(".", 1)
+        theirs, ours = next(p for p in DK._KP_BLOCK if rest.startswith(p[1]))
+        return f"transformer_blocks.{i}.{theirs}{rest[len(ours):]}", tuple(shape)
+    theirs, ours = next(p for p in DK._KP_TOP if key.startswith(p[1]))
+    return theirs + key[len(ours):], tuple(shape)
+
+
+def write_kandinsky_files(root: Path, dev, cfgs: dict):
+    """Kandinsky 2.2's four component files as a kandinsky_dir holds them,
+    from seeded random fp16 tensors under `root`: prior.safetensors
+    (diffusers' PriorTransformer, with clip_mean and clip_std),
+    decoder.safetensors (diffusers' UNet2DConditionModel with its
+    add_embedding and encoder_hid_proj image heads), text_encoder.safetensors
+    (HF's CLIPTextModelWithProjection of bigG) and movq.safetensors
+    (diffusers' VQModel: the decoder, post_quant_conv, the codebook and an
+    encoder and quant_conv, which the loader drops by name); a config.yaml
+    with no model (a Kandinsky job names its files). Refuses to start
+    without KANDINSKY_FILES_GB of free disk. -> (paths, {file: seconds})."""
+    import torch
+
+    from cremage_tpu_torch.io.diffusers_keys import KANDINSKY_HEADS
+    from cremage_tpu_torch.models.kandinsky import (
+        DiffusionPrior, KandinskyImageConditioner,
+    )
+    from cremage_tpu_torch.models.kandinsky_decoder import KandinskyUNet
+    from cremage_tpu_torch.models.open_clip import OpenCLIPTextModel
+    from cremage_tpu_torch.models.vae import Encoder, VAEConfig
+    from cremage_tpu_torch.models.vq import MoVQ
+
+    root.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(root).free / 1e9
+    if free < KANDINSKY_FILES_GB:
+        raise RuntimeError(f"kandinsky: {free:.1f} GB free under {root}, the "
+                           f"files need {KANDINSKY_FILES_GB} GB")
+    pcfg, dcfg, mcfg = cfgs["prior"], cfgs["decoder"], cfgs["movq"]
+    prior = dict(diffusers_prior_key(k, v)
+                 for k, v in meta_shapes(DiffusionPrior, pcfg).items())
+    g = torch.Generator().manual_seed(94)
+    stats = {"clip_mean": 0.1 * torch.randn(1, pcfg.image_embed_dim, generator=g),
+             "clip_std": 0.5 + torch.rand(1, pcfg.image_embed_dim, generator=g)}
+    decoder = meta_shapes(KandinskyUNet, dcfg)
+    with torch.device("meta"):
+        heads = KandinskyImageConditioner(
+            pcfg.image_embed_dim, dcfg.time_embed_dim, dcfg.context_dim)
+    for k, v in heads.state_dict().items():
+        theirs, ours = next(p for p in KANDINSKY_HEADS if k.startswith(p[1]))
+        decoder[theirs + k[len(ours):]] = tuple(v.shape)
+    text = {hf_openclip_key(k): v for k, v in
+            meta_shapes(OpenCLIPTextModel, cfgs["text"]).items()}
+    movq = meta_shapes(MoVQ, mcfg)
+    movq.update(dict(diffusers_vae_key("encoder." + k, v) for k, v in
+                     meta_shapes(Encoder, VAEConfig(
+                         ch_mult=(1, 2, 2, 4))).items()))
+    movq.update({"quant_conv.weight": (4, 4, 1, 1), "quant_conv.bias": (4,),
+                 "quantize.embedding.weight": (KANDINSKY_CODEBOOK, 4)})
+    paths = {k: root / f"{k}.safetensors"
+             for k in ("prior", "decoder", "text_encoder", "movq")}
+    paths["config"] = root / "config.yaml"
+    paths["config"].write_text("# Kandinsky 2.2 jobs name their files\n")
+    seconds = {
+        "prior": write_seeded_safetensors(paths["prior"], prior, dev, 95,
+                                          extra=stats, dtype="F16"),
+        "decoder": write_seeded_safetensors(paths["decoder"], decoder, dev, 96,
+                                            dtype="F16"),
+        "text_encoder": write_seeded_safetensors(
+            paths["text_encoder"], text, dev, 97,
+            tables=("token_embedding",), dtype="F16"),
+        "movq": write_seeded_safetensors(paths["movq"], movq, dev, 98,
+                                         dtype="F16")}
+    out = {k: str(v) for k, v in paths.items()}
+    out["dir"] = str(root)
+    return out, seconds
+
+
+def check_kandinsky_weights(bundle, paths):
+    """check_coded over a Kandinsky bundle's five models and their files."""
+    from cremage_tpu_torch.io import checkpoint as CK
+    from cremage_tpu_torch.io.diffusers_keys import (
+        kandinsky_decoder_from_diffusers, kandinsky_prior_from_diffusers,
+        movq_decoder_from_diffusers,
+    )
+    from cremage_tpu_torch.pipelines.loader import hf_text_tower_state_dict
+
+    def load(key):
+        return CK.load_safetensors(paths[key])
+
+    prior = kandinsky_prior_from_diffusers(load("prior"))
+    body, heads = kandinsky_decoder_from_diffusers(load("decoder"))
+    row = check_coded("kandinsky_weights", None, {
+        "prior": (bundle.prior, prior), "decoder": (bundle.decoder, body),
+        "image_cond": (bundle.image_cond, heads),
+        "text": (bundle.text.tower, hf_text_tower_state_dict(
+            load("text_encoder"))),
+        "movq": (bundle.movq, movq_decoder_from_diffusers(load("movq")))})
+    for k in ("clip_mean", "clip_std"):
+        if not bool((getattr(bundle, k).cpu() == prior[k].float().reshape(-1)
+                     ).all()):
+            raise AssertionError(f"kandinsky: {k} differs from its file")
+    return row
+
+
+def kandinsky_kernel_calls(bundle, steps: int):
+    """(K1, K2) launches of a Kandinsky 2.2 request from the module tree:
+    each of the `steps` decoder evaluations (the [uc; c] batch in one call)
+    runs one K1 call per added-KV attention (22 at full width: 9 down, 1
+    mid, 12 up) and every GroupNorm of the UNet, the MoVQ decode its mid
+    attention and every SpatialNorm's GroupNorm (the prior's causal
+    attention and the text tower's take the plain path)."""
+    from cremage_tpu_torch.models.kandinsky_decoder import AddedKVAttention
+    from cremage_tpu_torch.models.layers import GroupNorm
+    from cremage_tpu_torch.models.vq import MoVQAttention
+
+    return (steps * count(bundle.decoder, AddedKVAttention)
+            + count(bundle.movq, MoVQAttention),
+            steps * count(bundle.decoder, GroupNorm)
+            + count(bundle.movq, GroupNorm))
+
+
+def check_kandinsky_decoder(bundle, dev, res=KANDINSKY_RES):
+    """One full-width decoder UNet evaluation at the 768^2 latent, the CFG
+    batch of 2 (its context and time vector from the image conditioner on
+    seeded embeddings), in bf16 through the kernels against the same
+    weights in float32 through the plain versions, both on the card."""
+    import torch
+
+    from cremage_tpu_torch.models.kandinsky_decoder import KandinskyUNet
+
+    unet = bundle.decoder
+    with torch.device("meta"):
+        ref = KandinskyUNet(dataclasses.replace(unet.cfg, dtype=torch.float32))
+    ref.load_state_dict({k: v.float() for k, v in unet.state_dict().items()},
+                        assign=True)
+    g = torch.Generator(device=dev).manual_seed(27)
+    lat = res // 8
+    x = torch.randn(2, lat, lat, 4, device=dev, generator=g)
+    t = torch.tensor([500.0, 500.0], device=dev)
+    emb = torch.randn(2, bundle.prior.cfg.image_embed_dim, device=dev,
+                      generator=g)
+    with torch.no_grad():
+        tvec, ctx = bundle.image_cond(emb)
+        got = unet(x, t, ctx, tvec).float()
+        with plain_kernels():
+            want = ref.eval()(x, t, ctx.float(), tvec.float())
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel_l2 = float((got - want).norm() / want.norm())
+    # bf16 rounds each layer's output to 2^-9 relative and the errors add
+    # up along the residual stream, as for SD1.5's UNet (unet_full_width)
+    tol = 5e-2
+    row = dict(phase="kandinsky_decoder_full_width", shape=[2, lat, lat, 4],
+               max_rel_err=rel, rel_l2_err=rel_l2, tol=tol,
+               finite=bool(torch.isfinite(got).all()))
+    emit(row)
+    del ref, want
+    torch.cuda.empty_cache()
+    if not (row["finite"] and rel <= tol):
+        raise AssertionError(f"kandinsky decoder: max relative error {rel} > "
+                             f"{tol}")
+    return row
+
+
+def kandinsky(dev, card, root: Path, res=KANDINSKY_RES, steps=KANDINSKY_STEPS,
+              requests=KANDINSKY_REQUESTS, check_model=True):
+    """The phase kandinsky: the four component files (write_kandinsky_files)
+    under `root`, the job (768^2, 50 decoder steps of the served default,
+    "DDIM" -> Euler A, the prior's 25, CFG 4.0, batch 1) through the
+    --config server's /v1/generate naming kandinsky_dir: a warm-up of
+    DIT_WARMUP_STEPS steps that loads, `requests` timed requests, one more
+    with the shape hooks, one traced by torch.profiler (utils/profile_sd15.py
+    `trace`: the idle share), then one timed inpainting request on an
+    uploaded image and mask; img2img and an unported option refused. ->
+    (rows, {path: (K1 shapes, K2 shapes)}, launches of the timed txt2img
+    requests)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cremage_tpu_torch.app.server import build_server
+    from cremage_tpu_torch.core.config import GenerationOptions
+    from cremage_tpu_torch.io.png import encode_png
+    from cremage_tpu_torch.utils.profile_sd15 import trace
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_type = "Kandinsky 2.2"
+    paths, seconds = write_kandinsky_files(root, dev, kandinsky_configs())
+    rows = [dict(phase="kandinsky_files", seconds=seconds,
+                 bytes={k: os.path.getsize(v) for k, v in paths.items()
+                        if os.path.isfile(v)})]
+    emit(rows[0])
+    job = dict(prompt=DIT_PROMPT, negative_prompt=NEGATIVE, H=res, W=res,
+               sampling_steps=steps, n_samples=1, n_iter=1, scale=KANDINSKY_CFG,
+               safety_check=False, watermark=False, kandinsky_dir=paths["dir"])
+    srv = build_server(["--config", paths["config"], "--port", "0"])
+    srv.start()
+    client = Client(f"http://127.0.0.1:{srv.port}")
+    finite, runs, shapes = [], {}, {}
+    init, mask = test_image(res)
+
+    def resident():
+        return srv.worker._backends[model_type].resident.instance
+
+    def run(params, mode="text_to_image", record=False):
+        """-> (seconds, (K1, K2), images, finite decodes, shapes)."""
+        finite.clear()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            rec = (stack.enter_context(recording(resident().bundle))
+                   if record else None)
+            t1 = time.perf_counter()
+            client.generate(mode, params, model_type)
+            out = served_images(client.drain(1))
+            wall = time.perf_counter() - t1
+        return wall, read_counts(), out, list(finite), rec and rec[:2]
+
+    name = f"kandinsky {res}^2"
+    try:
+        refused = expect_refused(client, dict(job, deep_cache=3),
+                                 "an unported option", model_type)
+        up = {k: client.call("/v1/upload", {
+            "image": base64.b64encode(encode_png(a)).decode()})["path"]
+            for k, a in (("init_img", init), ("mask_img", mask))}
+        first = run(dict(job, sampling_steps=DIT_WARMUP_STEPS, seed=1))
+        bundle = resident().bundle
+        load = dict(first_run_seconds=first[0],
+                    resident_bytes=torch.cuda.memory_allocated(),
+                    files={k: dict(v, gb_per_s=v["bytes"] / max(v["seconds"],
+                                                                1e-9) / 1e9)
+                           for k, v in bundle.load_report["files"].items()})
+        rows.append(check_kandinsky_weights(bundle, paths))
+        emit(rows[-1])
+        client.generate("image_to_image", dict(job, init_img=up["init_img"]),
+                        model_type)
+        img2img = None
+        try:
+            client.drain(1)
+        except RuntimeError as e:
+            img2img = str(e)
+        hook = bundle.movq.decoder.register_forward_hook(
+            lambda m, a, out: finite.append(bool(torch.isfinite(out).all())))
+        finite.clear()
+        reset_counts()
+        t1 = time.perf_counter()
+        for r in range(requests):
+            client.generate("text_to_image", dict(job, seed=10 + r), model_type)
+        served = served_images(client.drain(requests))
+        wall = time.perf_counter() - t1
+        launches, decodes = read_counts(), list(finite)
+        runs[name] = run(dict(job, seed=12), record=True)
+        shapes[name] = runs[name][4]
+        opts = GenerationOptions.from_dict(dict(job, seed=13))
+        traced = trace(lambda: resident().generate(opts))
+        traced.pop("top_kernels_s")
+        runs[f"{name} inpainting"] = run(dict(job, seed=14, **up),
+                                         mode="inpainting", record=False)
+        hook.remove()
+        want = [requests * k for k in kandinsky_kernel_calls(bundle, steps)]
+        if check_model:
+            rows.append(check_kandinsky_decoder(bundle, dev, res))
+        del bundle
+    finally:
+        srv.stop()
+    held = srv.worker._backends[model_type].resident
+    held.key = held.instance = None         # free the served bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    stds = [float(np.std(p.astype(np.float32))) for p, _ in served]
+    inpainted = runs[f"{name} inpainting"][2][0][0]
+    keep = mask[..., 0] < 128
+    row = dict(phase="kandinsky", card=card, steps=steps, prior_steps=25,
+               res=res, batch=1, requests=requests, seconds=wall,
+               seconds_per_request=wall / requests,
+               images_per_s=len(served) / wall, load=load, traced=traced,
+               images=[list(p.shape) for p, _ in served], pixel_std=stds,
+               decodes_finite=decodes, refused=refused, img2img=img2img,
+               inpainting_unmasked_equal=bool(
+                   (inpainted[keep] == init[keep]).all()),
+               flash_attention_launches=launches[0],
+               group_norm_silu_launches=launches[1],
+               expected_flash_attention=want[0],
+               expected_group_norm_silu=want[1])
+    emit(row)
+    if len(served) != requests or any(p.shape != (res, res, 3)
+                                      for p, _ in served) \
+            or decodes != [True] * requests or min(stds) <= 0.0:
+        raise AssertionError(f"kandinsky: images {row['images']}, finite "
+                             f"decodes {decodes}, pixel std {stds}")
+    if "NotImplementedError" not in (refused or "") \
+            or "latent encoder" not in (img2img or ""):
+        raise AssertionError(f"kandinsky: refusals {refused}, {img2img}")
+    if not row["inpainting_unmasked_equal"]:
+        raise AssertionError("kandinsky: inpainting moved unmasked pixels")
+    if tuple(launches) != tuple(want):
+        raise AssertionError(f"kandinsky: kernel launches {launches} != "
+                             f"derived {want}")
+    rows.append(row)
+    for rname, (sec, (k1, k2), imgs, fin, rec) in runs.items():
+        r = dict(phase="kandinsky_request", request=rname, card=card,
+                 seconds=sec, images=[list(p.shape) for p, _ in imgs],
+                 pixel_std=[float(np.std(p.astype(np.float32)))
+                            for p, _ in imgs],
+                 decodes_finite=fin, flash_attention_launches=k1,
+                 group_norm_silu_launches=k2,
+                 expected_flash_attention=want[0] // requests,
+                 expected_group_norm_silu=want[1] // requests)
+        if rec is not None:
+            r["recorded_calls"] = [sum(rec[0].values()), sum(rec[1].values())]
+        emit(r)
+        if len(imgs) != 1 or imgs[0][0].shape != (res, res, 3) \
+                or min(r["pixel_std"]) <= 0.0 or fin != [True]:
+            raise AssertionError(f"{rname}: {r}")
+        if (k1, k2) != (r["expected_flash_attention"],
+                        r["expected_group_norm_silu"]) or (
+                rec is not None and tuple(r["recorded_calls"]) != (k1, k2)):
+            raise AssertionError(f"{rname}: kernel launches {(k1, k2)}, "
+                                 f"derived {want}, recorded "
+                                 f"{r.get('recorded_calls')}")
+        rows.append(r)
+    return rows, shapes, launches
+
+
 def full_configs():
     """The published SD1.5 widths: UNet, CLIP-L, VAE, ControlNet (the
     UNet's encoder on 4 latent channels) and the CompVis safety checker,
@@ -3772,6 +4160,15 @@ def main() -> int:
         finally:
             shutil.rmtree(dit_root, ignore_errors=True)
         paths.update(dit_paths)
+    torch.cuda.empty_cache()
+    watchdog("kandinsky")
+    kandinsky_root = REPO / "build" / "kandinsky"
+    try:
+        _, kandinsky_paths, kandinsky_launches = kandinsky(dev, card,
+                                                           kandinsky_root)
+    finally:
+        shutil.rmtree(kandinsky_root, ignore_errors=True)
+    paths.update(kandinsky_paths)
     paths["K2 any H*W"] = ({}, dict.fromkeys(K2_ANY_HW, 1))
     torch.cuda.empty_cache()
     watchdog("new_shapes")
@@ -3793,7 +4190,8 @@ def main() -> int:
                 "flux": flux_launches[key.startswith("group")],
                 "svd": svd_launches[key.startswith("group")],
                 **{p: n[key.startswith("group")]
-                   for p, n in dit_launches.items()}}
+                   for p, n in dit_launches.items()},
+                "kandinsky": kandinsky_launches[key.startswith("group")]}
 
     all_k1 = list(k1_rows.values()) + list(new_k1.values())
     hunyuan_path = f"hunyuan {HUNYUAN_RES}^2"

@@ -53,6 +53,15 @@ branch), each else the standard file name under `hunyuan_dir`
 (transformer.safetensors, vae.safetensors, clip.safetensors, vocab.txt,
 mt5.safetensors, spiece.model) where it exists; `dit_quantize`; JAX's
 resident key and its error when no transformer is found.
+
+`kandinsky_factory(prefs)` ("Kandinsky 2.2") loads its bundle from the
+four component files the job names, as JAX's backend picks them:
+`prior_ckpt`, `decoder_ckpt`, `text_encoder_ckpt` and `movq_ckpt`, each
+else the standard name under `kandinsky_dir` (prior.safetensors,
+decoder.safetensors, text_encoder.safetensors, movq.safetensors) where it
+exists; JAX's resident key and its error when the prior, the decoder or
+the text tower is not found (the loader refuses a missing MoVQ file).
+Jobs may name `init_img` and `mask_img` for inpainting.
 """
 from __future__ import annotations
 
@@ -344,19 +353,25 @@ HUNYUAN_FILES = (("dit_ckpt", "transformer.safetensors"),
                  ("mt5_ckpt", "mt5.safetensors"), ("mt5_spiece", "spiece.model"))
 
 
-def hunyuan_files(params: dict) -> dict:
-    """{option: path or None} of a Hunyuan-DiT job's component files, as
-    JAX's backend picks them: each option's own path, else the standard
-    name under `hunyuan_dir` where that file exists; the job's `ckpt`
-    before `dit_ckpt`."""
-    base = params.get("hunyuan_dir")
+def component_files(params: dict, dir_key: str, files) -> dict:
+    """{option: path or None} of a job's component files (`files`: (option,
+    standard name) pairs), as JAX's backends pick them: each option's own
+    path, else the standard name under the job's `dir_key` directory where
+    that file exists."""
+    base = params.get(dir_key)
 
     def pick(key, name):
         cand = os.path.join(base, name) if base else None
         return params.get(key) or (cand if cand and os.path.exists(cand)
                                    else None)
 
-    out = {key: pick(key, name) for key, name in HUNYUAN_FILES}
+    return {key: pick(key, name) for key, name in files}
+
+
+def hunyuan_files(params: dict) -> dict:
+    """`component_files` of a Hunyuan-DiT job under `hunyuan_dir`, the
+    job's `ckpt` before `dit_ckpt`."""
+    out = component_files(params, "hunyuan_dir", HUNYUAN_FILES)
     out["dit_ckpt"] = params.get("ckpt") or out["dit_ckpt"]
     return out
 
@@ -395,6 +410,50 @@ def hunyuan_factory(prefs: Preferences, device=None,
                 mt5_tokenize=f["mt5_spiece"], quantize_dit=quantize,
                 device=device), device=device))
             pipe.generate(opts, status_cb=status_cb, result_cb=result_cb)
+        generate.resident = resident
+        return generate
+
+    return factory
+
+
+KANDINSKY_FILES = (("prior_ckpt", "prior.safetensors"),
+                   ("decoder_ckpt", "decoder.safetensors"),
+                   ("text_encoder_ckpt", "text_encoder.safetensors"),
+                   ("movq_ckpt", "movq.safetensors"))
+
+
+def kandinsky_factory(prefs: Preferences, device=None,
+                      resident: Optional[ResidentInstance] = None) -> Callable:
+    """-> factory() -> generate(params, status_cb, result_cb) for Kandinsky
+    2.2 txt2img and inpainting jobs, loading the bundle from the component
+    files the job names (`component_files` under `kandinsky_dir`)."""
+    from cremage_tpu_torch.pipelines.kandinsky import KandinskyPipeline
+    from cremage_tpu_torch.pipelines.loader import load_kandinsky_bundle
+    from cremage_tpu_torch.pipelines.sd3 import check_supported
+
+    resident = resident or ResidentInstance()
+
+    def factory():
+        def generate(params, status_cb, result_cb):
+            opts = GenerationOptions.from_dict(params)
+            f = component_files(params, "kandinsky_dir", KANDINSKY_FILES)
+            if not (f["prior_ckpt"] and f["decoder_ckpt"]
+                    and f["text_encoder_ckpt"]):
+                raise FileNotFoundError(
+                    "Kandinsky 2.2 needs the diffusers component files: "
+                    "pass prior_ckpt + decoder_ckpt + text_encoder_ckpt "
+                    "(+ optional movq_ckpt), or kandinsky_dir containing "
+                    "prior/decoder/text_encoder[/movq].safetensors "
+                    "(kandinsky-community/kandinsky-2-2-{prior,decoder})")
+            check_supported(opts)       # before a model is loaded for it
+            key = ("kandinsky",) + tuple(f[k] for k, _ in KANDINSKY_FILES)
+            pipe = resident.get(key, lambda: KandinskyPipeline(
+                load_kandinsky_bundle(
+                    f["prior_ckpt"], f["decoder_ckpt"], f["text_encoder_ckpt"],
+                    movq_ckpt=f["movq_ckpt"], device=device), device=device))
+            pipe.generate(opts, status_cb=status_cb, result_cb=result_cb,
+                          init_image=load_image(params, "init_img"),
+                          mask_image=load_image(params, "mask_img"))
         generate.resident = resident
         return generate
 

@@ -51,7 +51,7 @@ from cremage_tpu_torch.app import dirs
 from cremage_tpu_torch.app.worker import EngineWorker, MP_MESSAGE_TYPE_INFERENCE
 from cremage_tpu_torch.core.config import (
     GENERATOR_MODEL_TYPES, GMT_FLUX_1_SCHNELL, GMT_HUNYUAN_DIT,
-    GMT_PIXART_SIGMA, GMT_SD_1_5, GMT_SD_3, GMT_SDXL, GMT_SVD,
+    GMT_KANDINSKY_2_2, GMT_PIXART_SIGMA, GMT_SD_1_5, GMT_SD_3, GMT_SDXL, GMT_SVD,
     GenerationOptions, MODE_INPAINTING,
 )
 from cremage_tpu_torch.io.metadata import read_generation_data
@@ -189,11 +189,12 @@ class ApiServer:
             # SDXL and SVD run the sgm menu, SD1.5 the k-diffusion/DDIM
             # names, as the JAX server lists them; both run the extra
             # samplers. FLUX and SD3 (flow Euler) take the k-diffusion
-            # names and ignore them, PixArt and Hunyuan-DiT run them, as in
-            # the JAX server
+            # names and ignore them, PixArt, Hunyuan-DiT and Kandinsky's
+            # decoder run them, as in the JAX server
             return {"model_types": [GMT_SD_1_5, GMT_SDXL, GMT_SD_3,
-                                    GMT_PIXART_SIGMA, GMT_HUNYUAN_DIT,
-                                    GMT_FLUX_1_SCHNELL, GMT_SVD],
+                                    GMT_PIXART_SIGMA, GMT_KANDINSKY_2_2,
+                                    GMT_HUNYUAN_DIT, GMT_FLUX_1_SCHNELL,
+                                    GMT_SVD],
                     "modes": list(MODES), "samplers": list(SAMPLER_MENU),
                     "extra_samplers": list(EXTRA_SAMPLERS),
                     "samplers_by_type": {GMT_SD_1_5: list(SAMPLER_MENU),
@@ -202,6 +203,7 @@ class ApiServer:
                                          GMT_SVD: list(SGM_SAMPLER_NAMES),
                                          GMT_SD_3: list(SAMPLER_MENU),
                                          GMT_PIXART_SIGMA: list(SAMPLER_MENU),
+                                         GMT_KANDINSKY_2_2: list(SAMPLER_MENU),
                                          GMT_HUNYUAN_DIT: list(SAMPLER_MENU)}}
         if path == "/v1/upload" and method == "POST":
             if not isinstance(body, dict) or "image" not in body:
@@ -395,8 +397,9 @@ def build_server(argv=None) -> ApiServer:
         deny_terms=args.deny_term) if args.deny_term else None)
     if args.config:
         from cremage_tpu_torch.app.backends import (
-            ResidentInstance, flux_factory, hunyuan_factory, pixart_factory,
-            sd3_factory, sd15_factory, sdxl_factory, svd_factory,
+            ResidentInstance, flux_factory, hunyuan_factory, kandinsky_factory,
+            pixart_factory, sd3_factory, sd15_factory, sdxl_factory,
+            svd_factory,
         )
         from cremage_tpu_torch.core.config import load_preferences
 
@@ -414,6 +417,8 @@ def build_server(argv=None) -> ApiServer:
         worker.register_backend(GMT_PIXART_SIGMA, pixart_factory(
             prefs, resident=resident))
         worker.register_backend(GMT_HUNYUAN_DIT, hunyuan_factory(
+            prefs, resident=resident))
+        worker.register_backend(GMT_KANDINSKY_2_2, kandinsky_factory(
             prefs, resident=resident))
     else:
         from cremage_tpu_torch.pipelines.sd15 import SD15Pipeline, build_sd15_bundle

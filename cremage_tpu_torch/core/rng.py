@@ -27,7 +27,10 @@ latents). The draws of one batch, with the JAX key each stands for
   fold_in(key, 1);
 - `refiner()`: the source of the SDXL refiner's pass, whose key is
   fold_in(key, 99) (its `encode` noises the base latent, its `step` draws
-  are the refiner sampler's).
+  are the refiner sampler's);
+- `prior()`: the source of Kandinsky 2.2's prior, whose key is
+  fold_in(key, 1) (its `initial` is the noisy image embedding, its `step`
+  draws the prior sampler's).
 """
 from __future__ import annotations
 
@@ -82,12 +85,15 @@ class NoiseSource(Protocol):
     def refiner(self) -> "NoiseSource":
         """The noise source of the SDXL refiner's pass."""
 
+    def prior(self) -> "NoiseSource":
+        """The noise source of Kandinsky 2.2's prior."""
+
 
 class GeneratorNoise:
     """Default source: one torch.Generator per batch, seeded with
-    seed + image index, on the pipeline's device. Every draw, the hires
-    and refiner passes' included, comes from it in the order the pipeline
-    asks."""
+    seed + image index, on the pipeline's device. Every draw, the hires,
+    refiner and prior passes' included, comes from it in the order the
+    pipeline asks."""
 
     def __init__(self, seed: int, device: torch.device):
         self.device = torch.device(device)
@@ -118,13 +124,16 @@ class GeneratorNoise:
     def refiner(self):
         return self
 
+    def prior(self):
+        return self
+
 
 class ArrayNoise:
     """Noise handed over as arrays, e.g. the ones the JAX pipeline drew:
     the initial noise, then one entry per sampler step (an array, or a
     sequence of arrays where a step makes several draws), and optionally
-    the encode, posterior and conditioning-augmentation noise and the hires
-    and refiner passes' own ArrayNoise. Asking for a draw that was not
+    the encode, posterior and conditioning-augmentation noise and the hires,
+    refiner and prior passes' own ArrayNoise. Asking for a draw that was not
     handed over raises."""
 
     def __init__(self, initial: Optional[np.ndarray],
@@ -133,14 +142,15 @@ class ArrayNoise:
                  posterior: Optional[np.ndarray] = None,
                  cond_aug: Optional[np.ndarray] = None,
                  hires: Optional["ArrayNoise"] = None,
-                 refiner: Optional["ArrayNoise"] = None):
+                 refiner: Optional["ArrayNoise"] = None,
+                 prior: Optional["ArrayNoise"] = None):
         self.device = torch.device(device)
         self._initial = initial
         self._steps = list(steps)
         self._encode = encode
         self._posterior = posterior
         self._cond_aug = cond_aug
-        self._passes = {"hires": hires, "refiner": refiner}
+        self._passes = {"hires": hires, "refiner": refiner, "prior": prior}
 
     def _take(self, arr, shape, what):
         if arr is None:
@@ -181,3 +191,6 @@ class ArrayNoise:
 
     def refiner(self):
         return self._pass("refiner")
+
+    def prior(self):
+        return self._pass("prior")

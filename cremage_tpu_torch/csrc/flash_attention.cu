@@ -262,6 +262,18 @@ __device__ __forceinline__ void issue_pv(float (&acc)[P::DV / 2],
 // m and the row sums l, returns the rescale factors al of the old O, and
 // packs P = exp2(s * scale_log2 - m) into bf16 A fragments. S's n8 blocks
 // 2kk and 2kk + 1 are the A fragment of keys [16kk, 16kk + 16).
+//
+// m is round(s_max * scale_log2). Up to |m| < kFmaLimit the scale folds
+// into one FMA a score, exp2(fma(s, c, -m)), and the max's own exponent is
+// the rounding residual of s_max * c: at most half an ulp of kFmaLimit, a
+// 3.4e-4 relative error in its P, below P's bf16 rounding. Beyond it
+// (inputs of |q|, |k| ~ 20-100 and more, by d and the keys' alignment) the
+// residual grows, to overflow exp2 near 2^31, so the tile takes the scores
+// scaled first, round(s * c) - m, whose max is exactly 0 (rounding is
+// monotone, so m is the largest of the rounded scores); the intrinsics
+// keep the product from contracting into the subtraction.
+constexpr float kFmaLimit = 16384.f;
+
 template <class P>
 __device__ __forceinline__ void softmax(float (&sc)[P::BK / 2], uint32_t (&pa)[P::BK / 16][4],
                                         int kv, int t4, float scale_log2, float& m0,
@@ -280,23 +292,37 @@ __device__ __forceinline__ void softmax(float (&sc)[P::BK / 2], uint32_t (&pa)[P
     mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
     mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
   }
-  const float mn0 = fmaxf(m0, quad_max(mx0) * scale_log2);
-  const float mn1 = fmaxf(m1, quad_max(mx1) * scale_log2);
+  const float mn0 = fmaxf(m0, __fmul_rn(quad_max(mx0), scale_log2));
+  const float mn1 = fmaxf(m1, __fmul_rn(quad_max(mx1), scale_log2));
   al0 = exp2_approx(m0 - mn0);
   al1 = exp2_approx(m1 - mn1);
   m0 = mn0;
   m1 = mn1;
   float rs0 = 0.f, rs1 = 0.f;
+  if (fabsf(mn0) < kFmaLimit && fabsf(mn1) < kFmaLimit) {
 #pragma unroll
-  for (int j = 0; j < P::BK / 8; ++j) {
-    const float p0 = exp2_approx(fmaf(sc[4 * j], scale_log2, -mn0));
-    const float p1 = exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -mn0));
-    const float p2 = exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -mn1));
-    const float p3 = exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -mn1));
-    rs0 += p0 + p1;
-    rs1 += p2 + p3;
-    pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
-    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    for (int j = 0; j < P::BK / 8; ++j) {
+      const float p0 = exp2_approx(fmaf(sc[4 * j], scale_log2, -mn0));
+      const float p1 = exp2_approx(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+      const float p2 = exp2_approx(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+      const float p3 = exp2_approx(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < P::BK / 8; ++j) {
+      const float p0 = exp2_approx(__fmul_rn(sc[4 * j], scale_log2) - mn0);
+      const float p1 = exp2_approx(__fmul_rn(sc[4 * j + 1], scale_log2) - mn0);
+      const float p2 = exp2_approx(__fmul_rn(sc[4 * j + 2], scale_log2) - mn1);
+      const float p3 = exp2_approx(__fmul_rn(sc[4 * j + 3], scale_log2) - mn1);
+      rs0 += p0 + p1;
+      rs1 += p2 + p3;
+      pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
   }
   l0 = l0 * al0 + rs0;
   l1 = l1 * al1 + rs1;

@@ -9,7 +9,9 @@ the video UNet's temporal ones) and (in, out) -> (out, in) for dense
 layers; embedding tables and the ViT's `proj` stay as they are. 8-bit
 leaves (io/quantize.py: float8 or int8 codes and a `weight_scale`
 sibling) carry over bit for bit into a module that `prepare_8bit` gave
-8-bit weights. Any missing or unused key raises.
+8-bit weights. Any missing or unused key raises. Modules named after
+the JAX parameters themselves (Kandinsky 2.2's prior, image conditioner,
+decoder UNet and MoVQ decoder among them) take `load_from_jax` as it is.
 
 Parameters arrive as a nested dict of numpy arrays (the caller applies
 `np.asarray` to each JAX leaf); nothing here imports jax.

@@ -44,6 +44,33 @@ port's models/hunyuan.py takes):
     norm_out.linear                               -> final_adaLN_1
     proj_out                                      -> final_linear
 
+Kandinsky 2.2 ships as diffusers component files:
+- the prior, a `PriorTransformer` (`kandinsky_prior_from_diffusers`, names
+  as JAX's converter gives them, which the port's models/kandinsky.py
+  takes; `clip_mean` and `clip_std` beside them):
+
+    time_embedding.linear_1/2                     (as they are)
+    proj_in                                       -> image_embed_proj
+    embedding_proj                                -> pooled_proj
+    encoder_hidden_states_proj                    -> text_proj
+    positional_embedding (1, N, C)                -> positional_embedding (N, C)
+    prd_embedding, clip_mean, clip_std            (as they are)
+    transformer_blocks.N.norm1 / norm3            -> blocks.N.ln_1 / ln_2
+    transformer_blocks.N.attn1.to_{q,k,v}         -> blocks.N.{q,k,v}_proj
+    transformer_blocks.N.attn1.to_out.0           -> blocks.N.out_proj
+    transformer_blocks.N.ff.net.0.proj / ff.net.2 -> blocks.N.mlp_fc / mlp_proj
+    norm_out / proj_to_clip_embeddings            -> final_ln / out_proj
+
+- the decoder, a `UNet2DConditionModel` (`kandinsky_decoder_from_diffusers`):
+  its body as it is (models/kandinsky_decoder.py is named after it), its
+  image heads add_embedding.image_proj / image_norm and
+  encoder_hid_proj.image_embeds / norm -> image_proj / image_norm /
+  context_proj / context_norm of models/kandinsky.py
+  `KandinskyImageConditioner`;
+- MoVQ, a `VQModel` (`movq_decoder_from_diffusers`): decoder.* and
+  post_quant_conv.* as they are (models/vq.py `MoVQ`), the codebook
+  (quantize.embedding.weight), the encoder and quant_conv dropped by name.
+
 Hunyuan-DiT's VAE ships as a diffusers `AutoencoderKL`
 (`sd_vae_from_diffusers`): the CompVis first-stage layout the port's
 models/vae.py takes, the decoder's up blocks in reverse order, the mid
@@ -250,4 +277,86 @@ def sd_vae_from_diffusers(sd: Mapping[str, torch.Tensor],
                 raise KeyError(f"{what}: unknown key {k}")
             continue
         out[_rename(k, k, _VAE_TOP, "", what)] = v
+    return out
+
+
+_KP_TOP = (("time_embedding.linear_1.", "time_embedding.linear_1."),
+           ("time_embedding.linear_2.", "time_embedding.linear_2."),
+           ("proj_in.", "image_embed_proj."),
+           ("embedding_proj.", "pooled_proj."),
+           ("encoder_hidden_states_proj.", "text_proj."),
+           ("norm_out.", "final_ln."),
+           ("proj_to_clip_embeddings.", "out_proj."),
+           ("prd_embedding", "prd_embedding"),
+           ("clip_mean", "clip_mean"),
+           ("clip_std", "clip_std"))
+_KP_BLOCK = (("norm1.", "ln_1."), ("attn1.to_q.", "q_proj."),
+             ("attn1.to_k.", "k_proj."), ("attn1.to_v.", "v_proj."),
+             ("attn1.to_out.0.", "out_proj."), ("norm3.", "ln_2."),
+             ("ff.net.0.proj.", "mlp_fc."), ("ff.net.2.", "mlp_proj."))
+
+
+def kandinsky_prior_from_diffusers(sd: Mapping[str, torch.Tensor]
+                                   ) -> Dict[str, torch.Tensor]:
+    """A diffusers PriorTransformer state dict -> the port's DiffusionPrior
+    keys and `clip_mean` / `clip_std` (the module docstring's table).
+    Unknown keys raise."""
+    what = "Kandinsky prior diffusers file"
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k == "positional_embedding":
+            out[k] = v[0] if v.ndim == 3 else v
+            continue
+        m = re.match(r"^transformer_blocks\.(\d+)\.(.+)$", k)
+        if m:
+            out[_rename(k, m.group(2), _KP_BLOCK, f"blocks.{m.group(1)}.",
+                        what)] = v
+            continue
+        out[_rename(k, k, _KP_TOP, "", what)] = v
+    return out
+
+
+KANDINSKY_HEADS = (("add_embedding.image_proj.", "image_proj."),
+                   ("add_embedding.image_norm.", "image_norm."),
+                   ("encoder_hid_proj.image_embeds.", "context_proj."),
+                   ("encoder_hid_proj.norm.", "context_norm."))
+
+
+def kandinsky_image_conditioner_from_diffusers(
+        sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The image heads of a diffusers Kandinsky 2.2 decoder UNet -> the
+    port's KandinskyImageConditioner keys; the other keys are left out."""
+    return {dst + k[len(src):]: v for k, v in sd.items()
+            for src, dst in KANDINSKY_HEADS if k.startswith(src)}
+
+
+def kandinsky_decoder_from_diffusers(sd: Mapping[str, torch.Tensor]
+                                     ) -> Tuple[Dict[str, torch.Tensor],
+                                                Dict[str, torch.Tensor]]:
+    """A diffusers Kandinsky 2.2 decoder UNet state dict -> (the body's
+    keys as they are, for models/kandinsky_decoder.py; the image heads'
+    keys, `kandinsky_image_conditioner_from_diffusers`). A body key the
+    UNet does not have raises when it loads (io/checkpoint.py
+    `load_into`)."""
+    heads = tuple(src for src, _ in KANDINSKY_HEADS)
+    body = {k: v for k, v in sd.items() if not k.startswith(heads)}
+    return body, kandinsky_image_conditioner_from_diffusers(sd)
+
+
+# the parts of a diffusers VQModel file the decode does not use
+MOVQ_DROPPED_PREFIXES = ("encoder.", "quant_conv.")
+MOVQ_CODEBOOK = "quantize.embedding.weight"
+
+
+def movq_decoder_from_diffusers(sd: Mapping[str, torch.Tensor]
+                                ) -> Dict[str, torch.Tensor]:
+    """A diffusers VQModel (Kandinsky's MoVQ) state dict -> the port's MoVQ
+    keys: decoder.* and post_quant_conv.* as they are; the codebook, the
+    encoder and quant_conv dropped by name. Any other key raises."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.startswith(("decoder.", "post_quant_conv.")):
+            out[k] = v
+        elif k != MOVQ_CODEBOOK and not k.startswith(MOVQ_DROPPED_PREFIXES):
+            raise KeyError(f"Kandinsky MoVQ diffusers file: unknown key {k}")
     return out

@@ -66,6 +66,20 @@ class Conv2d(nn.Conv2d):
         return y
 
 
+class Conv2dF32(Conv2d):
+    """A convolution the JAX package runs in float32 (its `Conv(...,
+    dtype=jnp.float32)`, e.g. Kandinsky's output convolutions): input,
+    weight and bias in float32, whatever the compute dtype; its weights
+    stay float32 under `set_compute_dtype`."""
+
+    def forward(self, x):
+        y = F.conv2d(x.float(), self.weight.float(), None, self.stride,
+                     self.padding)
+        if self.bias is not None:
+            y = y + self.bias.float()[:, None, None]
+        return y
+
+
 def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., in) @ w (out, in)^T accumulated and returned in float32, both
     operands in x's dtype: on CUDA one cuBLAS product with a float32
@@ -175,11 +189,12 @@ def quick_gelu(x):
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Store every Conv2d/Conv3d/Linear weight and bias in `dtype` (the
-    compute dtype); norm parameters, embedding tables and the video UNet's
-    blend factors stay float32, and 8-bit weights (io/quantize.py) and
-    their scales as they are."""
+    compute dtype); norm parameters, embedding tables, the video UNet's
+    blend factors and `Conv2dF32`'s weights stay float32, and 8-bit
+    weights (io/quantize.py) and their scales as they are."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, nn.Conv3d, Linear)):
+        if isinstance(m, (Conv2d, nn.Conv3d, Linear)) \
+                and not isinstance(m, Conv2dF32):
             for p in m.parameters(recurse=False):
                 if not is_coded(p):
                     p.data = p.data.to(dtype)

@@ -1,8 +1,8 @@
 """Checkpoint files -> SD15Bundle / SDXLBundle / FluxBundle / SVDBundle /
-SD3Bundle / PixArtBundle / HunyuanBundle (the port of
+SD3Bundle / PixArtBundle / HunyuanBundle / KandinskyBundle (the port of
 cremage_tpu/pipelines/loader.py `load_sd15_bundle`, `load_sdxl_bundle`,
 `load_flux_bundle`, `load_svd_bundle`, `load_sd3_bundle`,
-`load_pixart_bundle` and `load_hunyuan_bundle`),
+`load_pixart_bundle`, `load_hunyuan_bundle` and `load_kandinsky_bundle`),
 with the reference's overlay order: base -> VAE -> LoRA, and (SD1.5) a
 ControlNet beside, (SDXL) the refiner's UNet and bigG beside. LoRAs merge
 into the base model only, as in JAX; the refiner takes none.
@@ -35,8 +35,9 @@ from cremage_tpu_torch.core.rng import resolve_device
 from cremage_tpu_torch.io import checkpoint as CK
 from cremage_tpu_torch.io.lora import merge_lora
 from cremage_tpu_torch.io.diffusers_keys import (
-    hunyuan_from_diffusers, is_diffusers_vae, pixart_from_diffusers,
-    sd_vae_from_diffusers,
+    hunyuan_from_diffusers, is_diffusers_vae, kandinsky_decoder_from_diffusers,
+    kandinsky_prior_from_diffusers, movq_decoder_from_diffusers,
+    pixart_from_diffusers, sd_vae_from_diffusers,
 )
 from cremage_tpu_torch.io.quantize import (
     MIN_SIZE, check_dtype, prepare_8bit, quantize_module, storage_report,
@@ -48,10 +49,16 @@ from cremage_tpu_torch.models.clip_vision import CLIPVisionModel, vit_h14_config
 from cremage_tpu_torch.models.controlnet import PREFIX_CONTROLNET, ControlNet
 from cremage_tpu_torch.models.flux import FluxModel, flux_dev_config, flux_schnell_config
 from cremage_tpu_torch.models.hunyuan import HunyuanDiT, hunyuan_dit_config
+from cremage_tpu_torch.models.kandinsky import (
+    DiffusionPrior, KandinskyImageConditioner, PriorConfig,
+)
+from cremage_tpu_torch.models.kandinsky_decoder import (
+    KandinskyUNet, KandinskyUNetConfig,
+)
 from cremage_tpu_torch.models.layers import set_compute_dtype
 from cremage_tpu_torch.models.mmdit import MMDiT, sd3_medium_config
 from cremage_tpu_torch.models.open_clip import (
-    OpenCLIPTextModel, openclip_bigg_config,
+    OpenCLIPTextConfig, OpenCLIPTextModel, openclip_bigg_config,
 )
 from cremage_tpu_torch.models.pixart import PixArt, pixart_sigma_xl_config
 from cremage_tpu_torch.models.unet import (
@@ -63,9 +70,11 @@ from cremage_tpu_torch.models.vae import (
     AutoencoderKL, VAEConfig, flux_vae_config, sd3_vae_config, sdxl_vae_config,
 )
 from cremage_tpu_torch.models.video_unet import VideoUNet, svd_unet_config
+from cremage_tpu_torch.models.vq import MoVQ, MoVQConfig
 from cremage_tpu_torch.pipelines.conditioning import TextEncoder
 from cremage_tpu_torch.pipelines.flux import FluxBundle, FluxConditioner
 from cremage_tpu_torch.pipelines.hunyuan import HunyuanBundle, HunyuanTextEncoder
+from cremage_tpu_torch.pipelines.kandinsky import KandinskyBundle, KandinskyTextEncoder
 from cremage_tpu_torch.pipelines.pixart import PixArtBundle
 from cremage_tpu_torch.pipelines.sd3 import SD3Bundle, SD3Conditioner
 from cremage_tpu_torch.pipelines.sd15 import SD15Bundle
@@ -513,3 +522,86 @@ def load_hunyuan_bundle(dit_ckpt: str, vae_ckpt: Optional[str] = None,
                               cfg.text_len, cfg.text_len_t5, cfg.clip_dim,
                               cfg.mt5_dim)
     return HunyuanBundle(dit=dit, vae=vae, text=text, load_report=loads.report)
+
+
+def hf_text_tower_state_dict(sd) -> Dict[str, torch.Tensor]:
+    """An HF CLIPTextModelWithProjection file (`text_model.*` and
+    `text_projection.weight`) -> the port's OpenCLIPTextModel keys
+    (io/checkpoint.py `hf_text_to_openclip`); the position_ids buffer
+    dropped, any other key raises."""
+    tower = {}
+    for k, v in sd.items():
+        if k == "text_projection.weight":
+            tower[k] = v
+        elif k.startswith("text_model.") and k != "text_model." + CK.POSITION_IDS:
+            tower[k[len("text_model."):]] = v
+        elif k != "text_model." + CK.POSITION_IDS:
+            raise KeyError(f"HF CLIP text tower file: unknown key {k}")
+    return CK.hf_text_to_openclip(tower)
+
+
+def hf_text_tower_config(sd, dtype: torch.dtype) -> OpenCLIPTextConfig:
+    """The tower's dimensions from its tensors (`hf_text_tower_state_dict`
+    keys), with JAX's 64-wide heads."""
+    vocab, width = sd["token_embedding.weight"].shape
+    layers = 1 + max(int(k.split(".")[2]) for k in sd
+                     if k.startswith("transformer.resblocks."))
+    return OpenCLIPTextConfig(
+        vocab_size=vocab, width=width, num_layers=layers,
+        num_heads=max(1, width // 64),
+        max_positions=sd["positional_embedding"].shape[0],
+        mlp_ratio=sd["transformer.resblocks.0.mlp.c_fc.weight"].shape[0] // width,
+        dtype=dtype)
+
+
+def load_kandinsky_bundle(prior_ckpt: str, decoder_ckpt: str,
+                          text_encoder_ckpt: str,
+                          movq_ckpt: Optional[str] = None, device=None,
+                          dtype: torch.dtype = torch.bfloat16) -> KandinskyBundle:
+    """A Kandinsky 2.2 bundle on `device` (CUDA unless named) in `dtype` from
+    its four diffusers component files, as JAX's loader takes them: the
+    prior (a PriorTransformer, io/diffusers_keys.py
+    `kandinsky_prior_from_diffusers`, with its clip_mean and clip_std),
+    the decoder UNet with its image heads (`kandinsky_decoder_from_diffusers`;
+    the conditioner's dimensions and the UNet's context width from the
+    head tensors), the bigG text tower in HF's CLIPTextModelWithProjection
+    layout (its dimensions from the tensors) and MoVQ (a VQModel,
+    `movq_decoder_from_diffusers`), the prior, the UNet and MoVQ at the
+    published widths (JAX's default configs).
+    Without `movq_ckpt` JAX's bundle has no decoder for the latent; the
+    port refuses. Every part loads strictly. `load_report` as in
+    load_sd15_bundle."""
+    if not movq_ckpt:
+        raise FileNotFoundError(
+            "Kandinsky 2.2 needs movq_ckpt (the MoVQ VQModel file): without "
+            "it the JAX bundle has no decoder for the latent, the port refuses")
+    device = resolve_device(device)
+    loads = _Loads(device, dtype)
+    psd = kandinsky_prior_from_diffusers(loads.read(prior_ckpt))
+    clip_mean, clip_std = (psd.pop(k, None) for k in ("clip_mean", "clip_std"))
+    prior = loads.fill(_on_meta(DiffusionPrior, PriorConfig(dtype=dtype), dtype),
+                       psd, prior_ckpt, "Kandinsky prior")
+    body, heads = kandinsky_decoder_from_diffusers(loads.read(decoder_ckpt))
+    ted, embed_dim = heads["image_proj.weight"].shape
+    cross = heads["context_norm.weight"].shape[0]
+    dcfg = KandinskyUNetConfig(in_channels=4, context_dim=cross, dtype=dtype)
+    decoder = loads.fill(_on_meta(KandinskyUNet, dcfg, dtype), body,
+                         decoder_ckpt, "Kandinsky decoder UNet")
+    with torch.device("meta"):
+        cond = set_compute_dtype(KandinskyImageConditioner(
+            embed_dim, ted, cross, heads["context_proj.weight"].shape[0] // cross,
+            dtype), dtype)
+    cond = loads.fill(cond, heads, decoder_ckpt, "Kandinsky image conditioner")
+    tsd = hf_text_tower_state_dict(loads.read(text_encoder_ckpt))
+    tower = loads.fill(_on_meta(OpenCLIPTextModel,
+                                hf_text_tower_config(tsd, dtype), dtype),
+                       tsd, text_encoder_ckpt, "bigG text tower")
+    movq = loads.fill(_on_meta(MoVQ, MoVQConfig(dtype=dtype), dtype),
+                      movq_decoder_from_diffusers(loads.read(movq_ckpt)),
+                      movq_ckpt, "MoVQ")
+    return KandinskyBundle(
+        prior=prior, decoder=decoder, image_cond=cond, movq=movq,
+        text=KandinskyTextEncoder(tower),
+        clip_mean=None if clip_mean is None else clip_mean.reshape(-1).float(),
+        clip_std=None if clip_std is None else clip_std.reshape(-1).float(),
+        load_report=loads.report)

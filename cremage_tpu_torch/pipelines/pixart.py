@@ -51,6 +51,18 @@ def pixart_schedule() -> S.DiscreteSchedule:
     return S.DiscreteSchedule(S.sigmas_from_alphas_cumprod(acp))
 
 
+def menu_sigmas(opts: GenerationOptions, sched: S.DiscreteSchedule,
+                default: str):
+    """-> (the job's menu sampler, `default` for a name outside
+    samplers/kdiffusion.py SAMPLER_SCHEDULE; its sigmas over `sched`: the
+    model's or Karras's, as that table says)."""
+    name = opts.sampler if opts.sampler in K.SAMPLER_SCHEDULE else default
+    steps = opts.sampling_steps
+    if K.SAMPLER_SCHEDULE[name] == "model":
+        return name, sched.get_sigmas(steps)
+    return name, S.get_sigmas_karras(steps, sched.sigma_min, sched.sigma_max)
+
+
 @dataclasses.dataclass
 class PixArtBundle:
     dit: PixArt
@@ -101,13 +113,7 @@ class PixArtPipeline(NoMeshes):
 
     def sigmas(self, opts: GenerationOptions):
         """-> (sampler name, its sigmas)."""
-        name = opts.sampler if opts.sampler in K.SAMPLER_SCHEDULE \
-            else DEFAULT_SAMPLER
-        sched, steps = self.bundle.schedule, opts.sampling_steps
-        if K.SAMPLER_SCHEDULE[name] == "model":
-            return name, sched.get_sigmas(steps)
-        return name, S.get_sigmas_karras(steps, sched.sigma_min,
-                                          sched.sigma_max)
+        return menu_sigmas(opts, self.bundle.schedule, DEFAULT_SAMPLER)
 
     def denoiser(self, c, uc, scale: float):
         """The CFG denoiser over the DiT's eps, its learned-sigma half

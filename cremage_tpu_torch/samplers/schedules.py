@@ -5,7 +5,8 @@ All schedule math is float64 on the host (numpy); schedules are tiny
 (<= 1001 elements), so there is no reason to compute them on the device.
 
 - DDPM "linear" beta schedule = linspace in sqrt(beta) space, squared
-  (CompVis convention); PixArt's true-linear one (linspace in beta).
+  (CompVis convention); PixArt's true-linear one (linspace in beta);
+  Kandinsky's squaredcos_cap_v2 (diffusers) one.
 - k-diffusion discrete schedule: sigma_t = sqrt((1-acp_t)/acp_t),
   `get_sigmas(n)` linspace over t then interp in log-sigma, append 0.
 - Karras (rho = 7) sigmas over the model's [sigma_min, sigma_max] for the
@@ -39,6 +40,19 @@ def make_betas_plain_linear(
 ) -> np.ndarray:
     """True-linear beta schedule (diffusers 'linear'; PixArt)."""
     return np.linspace(beta_start, beta_end, n, dtype=np.float64)
+
+
+def make_betas_squaredcos(n: int = DDPM_NUM_TIMESTEPS,
+                          max_beta: float = 0.999) -> np.ndarray:
+    """squaredcos_cap_v2 (diffusers; Kandinsky's prior and decoder):
+    beta_t = min(1 - abar((t + 1) / n) / abar(t / n), max_beta) with
+    abar(s) = cos((s + 0.008) / 1.008 * pi / 2)^2."""
+    def abar(t):
+        return np.cos((t + 0.008) / 1.008 * np.pi / 2) ** 2
+
+    t1 = np.arange(n, dtype=np.float64) / n
+    t2 = (np.arange(n, dtype=np.float64) + 1) / n
+    return np.minimum(1 - abar(t2) / abar(t1), max_beta)
 
 
 def alphas_cumprod_from_betas(betas: np.ndarray) -> np.ndarray:

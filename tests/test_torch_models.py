@@ -253,7 +253,9 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
     is a slice of linear1's output), and of SVD's video UNet at one and
     two videos (a (3, 1, 1) convolution's output over one video is a
     strided view once its frames are put back first), ViT-H tower, SD3's
-    MMDiT, PixArt-Σ and Hunyuan-DiT here."""
+    MMDiT, PixArt-Σ, Hunyuan-DiT, and Kandinsky 2.2's decoder UNet (keys
+    and values concatenated from the context's and the stream's
+    projections) and MoVQ (its SpatialNorms and mid attention) here."""
     from cremage_tpu_torch.models import clip_vision as CV
     from cremage_tpu_torch.models import flux as FX
     from cremage_tpu_torch.models import mmdit as MM
@@ -363,3 +365,23 @@ def test_kernel_call_sites_pass_what_the_kernels_take(monkeypatch):
         hunyuan(torch.randn(2, 4, 6, 4), torch.tensor([1.0, 2.0]),
                 torch.randn(2, 5, 16), torch.randn(2, 6, 24))
     assert calls["attn"] == 2 * count(hunyuan, HY.HunyuanBlock) + 1 == 9
+
+    # Kandinsky 2.2's decoder UNet over a 8x6 latent (4x3 below the
+    # downsampling resnet) and MoVQ over a 4x6 one
+    from cremage_tpu_torch.models import kandinsky_decoder as KD
+    from cremage_tpu_torch.models import vq as VQ
+
+    monkeypatch.setattr(KD, "attention", attn)
+    monkeypatch.setattr(VQ, "attention", attn)
+    kd = KD.KandinskyUNet(KD.KandinskyUNetConfig(
+        block_out_channels=(32, 64), layers_per_block=1, context_dim=16,
+        attention_head_dim=16, dtype=torch.float32)).eval()
+    movq = VQ.MoVQ(VQ.MoVQConfig(block_out_channels=(32, 64),
+                                 layers_per_block=1, dtype=torch.float32)).eval()
+    calls.update(attn=0, gn=0)
+    with torch.no_grad():
+        kd(torch.randn(2, 8, 6, 4), torch.tensor([1.0, 2.0]),
+           torch.randn(2, 3, 16), torch.randn(2, 128))
+        movq.decode(torch.randn(1, 4, 6, 4))
+    assert calls["attn"] == count(kd, KD.AddedKVAttention) + 1 == 5
+    assert calls["gn"] == count(kd, L.GroupNorm) + count(movq, L.GroupNorm)

@@ -158,6 +158,10 @@ DIT_NQ_NK_D = [(4250, 4250, 64), (4096, 4096, 72), (4096, 120, 72)]
 # attention pool: one query row over the 257 mT5 tokens at d = 256
 HUNYUAN_NQ_NK_D = [(4096, 4096, 88), (4096, 333, 88), (100, 77, 88),
                    (1, 257, 256)]
+# Kandinsky 2.2's decoder UNet at 768^2: added-KV attention over [10
+# context; 48^2, 24^2, 12^2 spatial] keys (12, 18, 24 heads of 64, batch 2);
+# MoVQ's mid attention over 9216 tokens at d = 512 is SVD's VAE's shape
+KANDINSKY_NQ_NK_D = [(2304, 2314, 64), (576, 586, 64), (144, 154, 64)]
 
 
 @pytest.mark.parametrize("nq,nk,d", ALL_NQ_NK_D)
@@ -218,10 +222,15 @@ def test_flash_plan_is_an_instantiation_of_the_kernel(nq, nk, d):
 def test_plans_take_the_refiner_shapes():
     """The SDXL refiner's K1 and K2 shapes, FLUX's K1 shapes at dp = 128
     (2 warpgroups, q double-buffered beside a 2-stage ring), SVD's K1
-    and K2 shapes (one key: a single 80-key tile) and the DiTs' K1 shapes
+    and K2 shapes (one key: a single 80-key tile), the DiTs' K1 shapes
     (SD3's 4250 keys, PixArt's d = 72 on dp = 80, Hunyuan-DiT's d = 88 on
-    dp = 96 and its pool's d = 256), through each plan test above (one test: under `--dist load` the number of collected items
-    sets the suite's wall time, ROADMAP.md)."""
+    dp = 96 and its pool's d = 256) and Kandinsky 2.2's K1 and K2 shapes
+    (Nk = Nq + 10 at d = 64; 36- and 48-channel groups), through each plan
+    test above (one test: under `--dist load` the number of collected
+    items sets the suite's wall time, ROADMAP.md)."""
+    for nq, nk, d in KANDINSKY_NQ_NK_D:
+        plan = plan_flash(d, nq, nk)
+        assert (plan.dp, plan.nwg, plan.bk, plan.stages) == (64, 3, 128, 3)
     for nq, nk, d in DIT_NQ_NK_D:
         plan = plan_flash(d, nq, nk)
         assert (plan.dp, plan.nwg, plan.bk) == (-(-d // 16) * 16, 3, 128)
@@ -246,13 +255,14 @@ def test_plans_take_the_refiner_shapes():
                 plan.stages) == want, (nq, nk, d)
         assert plan.bk == (64 if d == 256 else 80 if nk <= 80 else 128)
     for nq, nk, d in (REFINER_NQ_NK_D + FLUX_NQ_NK_D + SVD_NQ_NK_D
-                      + DIT_NQ_NK_D + HUNYUAN_NQ_NK_D):
+                      + DIT_NQ_NK_D + HUNYUAN_NQ_NK_D + KANDINSKY_NQ_NK_D):
         for check in (test_flash_plan_fits_shared_memory,
                       test_flash_plan_tma_boxes, test_flash_plan_key_tile,
                       test_flash_plan_output_split_covers_d_once,
                       test_flash_plan_is_an_instantiation_of_the_kernel):
             check(nq, nk, d)
-    for shape in REFINER_GN + [c[:4] for c in FLUX_VAE_GN] + SVD_GN:
+    for shape in (REFINER_GN + [c[:4] for c in FLUX_VAE_GN] + SVD_GN
+                  + KANDINSKY_GN):
         for check in (test_groupnorm_plan_covers_slab_once,
                       test_groupnorm_plan_fits_a_cta,
                       test_groupnorm_new_path_route):
@@ -366,6 +376,15 @@ REFINER_GN = [(2, 384, 128, 128), (2, 1152, 64, 64), (2, 2304, 32, 32)]
 SVD_GN = [(28, 320, 72, 128), (28, 640, 72, 128), (28, 640, 36, 64),
           (28, 960, 36, 64), (28, 1280, 18, 32), (28, 2560, 9, 16),
           (1, 128, 576, 1024), (1, 256, 576, 1024), (1, 512, 72, 128)]
+# Kandinsky 2.2 at 768^2: the decoder UNet's CFG batch of 2, with the
+# 36-channel groups of 1152 channels (at 96^2 in the last up block, at
+# 48^2 and 24^2) and the 48-channel ones of 1536 (at 48^2 and 12^2), and
+# the skip concatenations' 2688 and 3072 channels; MoVQ's SpatialNorms at
+# batch 1 up to 768^2
+KANDINSKY_GN = [(2, 1152, 96, 96), (2, 1152, 24, 24), (2, 1536, 48, 48),
+                (2, 1536, 12, 12), (2, 2688, 24, 24), (2, 3072, 12, 12),
+                (1, 512, 96, 96), (1, 512, 192, 192), (1, 256, 768, 768),
+                (1, 128, 768, 768)]
 # the FLUX VAE decoder's 30 calls at 1024^2 (batch 1, z = 16): 7 (shape,
 # SiLU) pairs, the mid-block attention's norm the one without SiLU
 FLUX_VAE_GN = [(1, 512, 128, 128, True), (1, 512, 128, 128, False),
@@ -649,6 +668,24 @@ def test_groupnorm_kernel_takes_any_hw(cuda):
                 (n, c, h, w, silu)
 
 
+def _check_flash_large_logits(cuda, b, nq, nk, h, d, magnitude=3e4):
+    """K1 at inputs `magnitude` times N(0, 1), each q row also the key of
+    the same index (its own score, d * magnitude^2 / sqrt(d), leads the
+    others by a factor near sqrt(d), so the plain version's output is that
+    key's value row, with no near tie that rounding could flip): finite and
+    within a few bf16 ulps of the plain version."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(d, b, nq, nk, h, d))
+    k[:, :nq] = q
+    q, k, v = (t.mul(magnitude).to(cuda, torch.bfloat16) for t in (q, k, v))
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = flash_attention_reference(q, k, v)
+    assert bool(torch.isfinite(got).all()), (b, nq, nk, h, d)
+    tol = 2.0 ** -6 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol, \
+        (b, nq, nk, h, d)
+
+
 def _check_8bit_linear(cuda, rows, n_in, n_out, kind):
     """`Linear` over 8-bit codes on the card (cuBLAS's float32-output
     product, or `_int_mm`) against its CPU branch on the same codes,
@@ -724,9 +761,14 @@ def test_flash_kernel_at_refiner_shapes(cuda):
     branch, at FLUX's width and at 7 rows (`_int_mm`'s padding) and at
     Hunyuan-DiT's MLP widths (6054, not a multiple of 8: padded), and
     SD3's int8 patch embedding at its 1024^2 latent and at 4x4 (padded
-    rows)."""
+    rows); Kandinsky 2.2's added-KV attention over [10 context; spatial]
+    keys and MoVQ's d = 512 over 9216 tokens, and both at inputs 3e4 times
+    larger (`_check_flash_large_logits`: scaled logits beyond 2^31, as a
+    random-weight MoVQ gives them at 768^2; the exponent of each row's max
+    must be exactly 0, or exp2 overflows)."""
     cases = [(2, nq, nk, h, d) for (nq, nk, d), h in zip(
-        REFINER_NQ_NK_D, (12, 12, 24, 24, 24, 24))] + [
+        REFINER_NQ_NK_D + KANDINSKY_NQ_NK_D,
+        (12, 12, 24, 24, 24, 24, 12, 18, 24))] + [(1, 9216, 9216, 1, 512)] + [
         (1, 4352, 4352, 24, 128), (1, 4352, 4100, 24, 128),
         (2, 4352, 4352, 24, 128), (2, 100, 77, 4, 128), (1, 300, 130, 3, 128),
         (1, 300, 4250, 4, 64), (1, 256, 256, 2, 72), (1, 300, 120, 2, 72),
@@ -739,6 +781,8 @@ def test_flash_kernel_at_refiner_shapes(cuda):
     for case in ((2, 1, 257, 8, 256), (1, 3, 257, 8, 256),
                  (1, 300, 200, 3, 88)):
         _check_flash_store_bounds(cuda, *case)
+    for case in ((1, 9216, 9216, 1, 512), (1, 2304, 2314, 12, 64)):
+        _check_flash_large_logits(cuda, *case)
     for kind in ("float8_e4m3", "float8_e5m2", "int8"):
         for rows in (300, 7):
             _check_8bit_linear(cuda, rows, 3072, 3072, kind)
@@ -751,11 +795,12 @@ def test_flash_kernel_at_refiner_shapes(cuda):
 
 @pytest.mark.cuda
 def test_groupnorm_kernel_at_refiner_shapes(cuda):
-    """The SDXL refiner's slabs (12 channels a group at 128^2) on the card,
-    with and without SiLU, and the FLUX VAE decoder's at 1024^2: the
-    kernel within one bf16 ulp of the plain version."""
+    """The SDXL refiner's slabs (12 channels a group at 128^2) and
+    Kandinsky 2.2's (36 and 48 channels a group; MoVQ's up to 768^2) on
+    the card, with and without SiLU, and the FLUX VAE decoder's at
+    1024^2: the kernel within one bf16 ulp of the plain version."""
     rng = np.random.RandomState(7)
-    cases = [(n, c, h, w, silu) for n, c, h, w in REFINER_GN
+    cases = [(n, c, h, w, silu) for n, c, h, w in REFINER_GN + KANDINSKY_GN
              for silu in (True, False)] + FLUX_VAE_GN
     for n, c, h, w, silu in cases:
         xt = torch.from_numpy((rng.randn(n, c, h, w) * 2.0 + 1.0).astype(

@@ -371,7 +371,8 @@ def test_meta_lists_sdxl_as_the_jax_server():
     ref = JServer.handle(JServer.__new__(JServer), "GET", "/v1/meta", {})
     # the served types, in the JAX server's order
     assert ours["model_types"] == ["SD 1.5", "SDXL", "SD 3", "PixArt-Sigma",
-                                   "Hunyuan DiT", "FLUX.1-schnell", "SVD"]
+                                   "Kandinsky 2.2", "Hunyuan DiT",
+                                   "FLUX.1-schnell", "SVD"]
     assert ours["model_types"] == [t for t in ref["model_types"]
                                    if t in ours["model_types"]]
     for t in ours["model_types"]:
